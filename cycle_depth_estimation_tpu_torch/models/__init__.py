@@ -1,0 +1,27 @@
+"""Model registry: ``--model <name>`` → model class (the JAX package's
+``models/__init__.py``). The port registers the serving model ``test``."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+_MODEL_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_model(name: str):
+    def deco(cls):
+        _MODEL_REGISTRY[name] = cls
+        return cls
+
+    return deco
+
+
+def create_model(cfg, device=None):
+    """Build the model ``cfg.model`` on ``device`` (default ``cfg.device``)."""
+    from . import test_model  # noqa: F401  (registers 'test')
+
+    if cfg.model not in _MODEL_REGISTRY:
+        raise KeyError(f"model [{cfg.model}] not registered; available: "
+                       f"{sorted(_MODEL_REGISTRY)}")
+    return _MODEL_REGISTRY[cfg.model](
+        cfg, device=cfg.device if device is None else device)
