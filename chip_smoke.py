@@ -10,8 +10,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    generator's three plane shapes, fp32 and bf16, with kernel, plain,
    ``F.instance_norm`` and byte-bound times.
 2. int8 epilogue kernel (CUDA C++) against its plain version at every site
-   variant of ``fused_int8_apply``; then the int8 conv against its exact
-   fp64 reference. Phases 1 and 2 report device time per call: calls
+   variant of ``fused_int8_apply``, with the plan each site takes, its time
+   beside its bound and beside the generic (earlier) kernel's; then ragged
+   and 'edge' shapes, correctness only; then (phase 2b) the int8 conv
+   against its exact fp64 reference. Phases 1 and 2 report device time per
+   call: calls
    replayed from a CUDA graph over inputs that exceed the L2 cache; the
    eager back-to-back time, which includes the host's launch, is printed
    beside the kernel's.
@@ -31,6 +34,14 @@ Launch counts are zeroed just before phase 3 and read after phase 7: that
 run is the main path. The last three lines are a JSON object with every
 kernel's numbers, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --sweep-epilogue [TABLE]
+
+builds the kernels and times every legal plan of the epilogue's cluster
+kernel (channel tile, cluster size, threads, staged rows) at every site, each
+checked against the plain version first. That is how ``plan_epilogue``'s
+rules were chosen. It prints the best plans of each site, appends every
+timing to the file TABLE if one is named, and prints no result line.
 """
 
 from __future__ import annotations
@@ -70,6 +81,30 @@ EP_SITES = {
     "last_block_float": (_S4, "int32", False, dict(residual=True), 1),
     "up0_float": (_S2, "bf16", False, dict(relu=True), 1),
     "up1_pad3": (_S1, "bf16", True, dict(relu=True, pad=3), 1),
+}
+# ms per call of the epilogue kernel before its redesign (one block per
+# (sample, 8 channels), scalar access, two reads of y; PERF.md section 6,
+# NVIDIA H100 80GB HBM3, 700.00 W). The same kernel is still the generic
+# variant, and phase 2 times it again beside the new one.
+EP_EARLIER_MS = {"conv_in": 0.307, "down0": 0.098, "down1": 0.095,
+                 "block_conv1": 0.051, "block_conv2": 0.111,
+                 "last_block_float": 0.065, "up0_float": 0.088,
+                 "up1_pad3": 0.296}
+INT8_EARLIER_IPS = 481.9  # fused int8 img/s then: same section, card, limit
+# Shapes off the main path, correctness only: ragged channel tiles, a C the
+# vector path cannot take, a split with an odd cluster, 'edge' padding
+EP_RAGGED = {
+    "c24_h10_pad3": ((2, 10, 10, 24), "int32", True, dict(relu=True, pad=3)),
+    "c6_h10_pad3": ((2, 10, 10, 6), "int32", True,
+                    dict(residual=True, pad=3)),
+    "c24_edge_pad3": ((2, 10, 12, 24), "bf16", True,
+                      dict(relu=True, pad=3, pad_mode="edge",
+                           keep_float=True)),
+    "c40_h67_edge_pad2": ((3, 67, 33, 40), "int32", True,
+                          dict(residual=True, pad=2, pad_mode="edge")),
+    "c72_h50_pad3": ((3, 50, 41, 72), "bf16", True,
+                     dict(relu=True, pad=3, keep_float=True)),
+    "c6_float_only": ((2, 9, 7, 6), "bf16", False, dict(relu=True)),
 }
 # InstanceNorm sites of one generator forward, and epilogue sites of one
 # fused int8 forward: both 23 at 9 blocks
@@ -261,45 +296,163 @@ def compare_epilogue(what, kernel_out, plain_out):
     return err, frac
 
 
+def _plan_of(y, res, quantize, kw):
+    from cycle_depth_estimation_tpu_torch.ops.kernels.int8_epilogue import (
+        plan_epilogue)
+
+    return plan_epilogue(y.shape, y.element_size(), pad=kw.get("pad", 0),
+                         pad_mode=kw.get("pad_mode", "reflect"),
+                         quantize=quantize, residual=res is not None)
+
+
+def _describe(kw, quantize):
+    desc = ",".join(k if v is True else f"{k}={v}" for k, v in kw.items())
+    return desc + ("" if quantize else ",float-only")
+
+
 def phase_epilogue(gen):
     import torch
 
-    from cycle_depth_estimation_tpu_torch.ops.kernels.int8_epilogue import (
-        fused_in_epilogue, plain_epilogue)
+    from cycle_depth_estimation_tpu_torch.ops.kernels import int8_epilogue as ep
 
-    totals = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)
+    totals = dict(ms=0.0, plain_ms=0.0, generic_ms=0.0, bytes=0, flops=0)
     max_err = 0.0
+    generic = ep.plan_epilogue((1, 1, 1, 1), 4)  # C = 1: the generic kernel
+    ep.fused_in_epilogue.variant_launches.clear()
     for name, (shape, in_dtype, quantize, kw, calls) in EP_SITES.items():
-        desc = ",".join(k if v is True else f"{k}={v}" for k, v in kw.items())
+        desc = _describe(kw, quantize)
         y, res, kw = _site_inputs(gen, shape, in_dtype, kw)
         inv = 25.0 if quantize else None
-        out_k = fused_in_epilogue(y, inv, res, **kw)
-        out_p = plain_epilogue(y, inv, res, **kw)
+        plan = _plan_of(y, res, quantize, kw)
+        if plan.variant == "generic" or plan.blocks(shape[0], shape[3]) < ep.SM_COUNT:
+            raise AssertionError(f"epilogue {name}: main-path site takes {plan}")
+        fits = ep.active_clusters(shape, y.element_size(), plan,
+                                  pad=kw.get("pad", 0) if quantize else 0)
+        if fits < 1:
+            raise AssertionError(f"epilogue {name}: the card cannot place one "
+                                 f"cluster of {plan}")
+        with counted(ep.fused_in_epilogue, 1, f"epilogue {name}"):
+            out_k = ep.fused_in_epilogue(y, inv, res, **kw)
+        out_p = ep.plain_epilogue(y, inv, res, **kw)
         torch.cuda.synchronize()
         err, frac = compare_epilogue(name, out_k, out_p)
         max_err = max(max_err, err)
         nbytes = sum(t.numel() * t.element_size()
                      for t in (y, res, *out_k) if t is not None)
+
         ins = copies_past_l2(y, res)
         t_k = device_ms_per_call(
-            lambda a, r: fused_in_epilogue(a, inv, r, **kw), ins)
+            lambda a, r: ep.fused_in_epilogue(a, inv, r, **kw), ins)
+        t_g = device_ms_per_call(
+            lambda a, r: ep.launch(a, inv, r, plan=generic, **kw), ins)
         t_p = device_ms_per_call(
-            lambda a, r: plain_epilogue(a, inv, r, **kw), ins)
-        t_e = ms_per_call(lambda: fused_in_epilogue(y, inv, res, **kw))
+            lambda a, r: ep.plain_epilogue(a, inv, r, **kw), ins)
+        t_e = ms_per_call(lambda: ep.fused_in_epilogue(y, inv, res, **kw))
         flops = EP_FLOPS_PER_ELEM * y.numel()
         t_b, _ = bound(nbytes, flops)
-        log(f"phase 2: int8_epilogue {name} {tuple(shape)} {in_dtype} "
-            f"{desc}{'' if quantize else ',float-only'}: "
-            f"max_abs_err {err:.3g} int8 mismatch share {frac:.2e} "
-            f"kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {t_b:.4f} ms; "
-            f"eager back-to-back {t_e:.4f} ms (x{calls} per forward)")
+        if t_k < t_b:
+            raise AssertionError(f"epilogue {name}: {t_k} ms is under its "
+                                 f"bound of {t_b} ms: wrong count or timer")
+        log(f"phase 2: int8_epilogue {name} {tuple(shape)} {in_dtype} {desc}: "
+            f"{plan.variant} ct {plan.channel_tile} cluster {plan.cluster} "
+            f"threads {plan.threads} staged {plan.staged_rows}/{plan.rows} "
+            f"rows smem {plan.shared_bytes} B, "
+            f"{plan.blocks(shape[0], shape[3])} blocks, {fits} clusters "
+            f"resident; max_abs_err {err:.3g} int8 mismatch share {frac:.2e} "
+            f"kernel {t_k:.4f} ms bound {t_b:.4f} ms ({t_k / t_b:.2f}x) "
+            f"generic kernel {t_g:.4f} ms (earlier run "
+            f"{EP_EARLIER_MS[name]:.3f} ms) plain {t_p:.4f} ms; eager "
+            f"back-to-back {t_e:.4f} ms (x{calls} per forward)")
         totals["ms"] += calls * t_k
         totals["plain_ms"] += calls * t_p
+        totals["generic_ms"] += calls * t_g
         totals["bytes"] += calls * nbytes
         totals["flops"] += calls * flops
         del y, res, ins, out_k, out_p
-    log(f"phase 2 ok: int8_epilogue per int8 forward {totals['ms']:.4f} ms")
+
+    for name, (shape, in_dtype, quantize, kw) in EP_RAGGED.items():
+        desc = _describe(kw, quantize)
+        y, res, kw = _site_inputs(gen, shape, in_dtype, kw)
+        inv = 25.0 if quantize else None
+        plan = _plan_of(y, res, quantize, kw)
+        with counted(ep.fused_in_epilogue, 1, f"epilogue {name}"):
+            out_k = ep.fused_in_epilogue(y, inv, res, **kw)
+        torch.cuda.synchronize()
+        err, frac = compare_epilogue(name, out_k,
+                                     ep.plain_epilogue(y, inv, res, **kw))
+        max_err = max(max_err, err)
+        log(f"phase 2: int8_epilogue ragged {name} {tuple(shape)} {in_dtype} "
+            f"{desc}: {plan.variant} ct {plan.channel_tile} cluster "
+            f"{plan.cluster}; max_abs_err {err:.3g} int8 mismatch share "
+            f"{frac:.2e}")
+    by_variant = dict(ep.fused_in_epilogue.variant_launches)
+    if not by_variant.get("generic"):
+        raise AssertionError("no ragged case took the generic kernel")
+    sum_earlier = sum(EP_EARLIER_MS[k] * v[-1] for k, v in EP_SITES.items())
+    log(f"phase 2 ok: int8_epilogue per int8 forward {totals['ms']:.4f} ms; "
+        f"generic (earlier) kernel now {totals['generic_ms']:.4f} ms, earlier "
+        f"run {sum_earlier:.3f} ms; launches by variant {by_variant}")
     return totals, max_err
+
+
+def sweep_epilogue(gen, table=None):
+    """Time every legal plan of the cluster kernel at every site; append
+    all timings to the file ``table`` if given."""
+    import itertools
+
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.ops.kernels import int8_epilogue as ep
+
+    for name, (shape, in_dtype, quantize, kw, calls) in EP_SITES.items():
+        y, res, kw = _site_inputs(gen, shape, in_dtype, kw)
+        inv = 25.0 if quantize else None
+        pad = kw.get("pad", 0) if quantize else 0
+        out_p = ep.plain_epilogue(y, inv, res, **kw)
+        ins = copies_past_l2(y, res)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (y, res, *out_p) if t is not None)
+        t_b, _ = bound(nbytes, EP_FLOPS_PER_ELEM * y.numel())
+        chosen = _plan_of(y, res, quantize, kw)
+        rows = []
+        plans = set()
+        for ct, cluster, threads, per_sm in itertools.product(
+                (8, 16, 32, 64), ep.legal_clusters(shape[1], pad, "reflect"),
+                (256, 512, 1024), (0, 1, 2, 3, 4, 6, 8)):
+            if ct <= shape[3] and cluster in (1, 2, 4, 8):
+                plans.add(ep.make_plan(shape, y.element_size(), ct, cluster,
+                                       threads, per_sm))
+        for plan in sorted(plans):
+
+            def run(a, r, plan=plan):
+                return ep.launch(a, inv, r, plan=plan, **kw)
+
+            out_k = run(y, res)
+            torch.cuda.synchronize()
+            compare_epilogue(f"{name} {plan}", out_k, out_p)
+            rows.append((device_ms_per_call(run, ins), plan))
+        rows.sort(key=lambda r: r[0])
+        t_chosen = [t for t, p in rows if p == chosen]
+        log(f"sweep {name} {tuple(shape)} {in_dtype} x{calls}: bound "
+            f"{t_b:.4f} ms; plan_epilogue picks {chosen} = "
+            f"{t_chosen[0] if t_chosen else float('nan'):.4f} ms; "
+            f"{len(rows)} plans")
+        if table is not None:
+            with open(table, "a") as f:
+                for t, p in rows:
+                    f.write(f"{name} {t:.4f} {t / t_b:.2f} "
+                            f"{' '.join(map(str, p))}\n")
+        for t, p in rows[:16] + rows[-2:]:
+            log(f"sweep   {t:.4f} ms ({t / t_b:.2f}x) {p.variant} ct "
+                f"{p.channel_tile} cluster {p.cluster} threads {p.threads} "
+                f"staged {p.staged_rows}/{p.rows} rows smem {p.shared_bytes}")
+        best = {}
+        for t, p in rows:
+            best.setdefault((p.variant, p.cluster), (t, p))
+        for (variant, cluster), (t, p) in sorted(best.items()):
+            log(f"sweep   best {variant} cluster {cluster}: {t:.4f} ms ct "
+                f"{p.channel_tile} threads {p.threads}")
+        del y, res, ins, out_p
 
 
 def phase_int8_conv(gen):
@@ -323,7 +476,7 @@ def phase_int8_conv(gen):
         if not torch.equal(got, want):
             raise AssertionError(f"int8 conv {k}x{k} cin {cin} cout {cout} "
                                  "differs from the fp64 reference")
-    log("phase 2 ok: int8 conv (im2col + int8 GEMM) exact against fp64 conv")
+    log("phase 2b ok: int8 conv (im2col + int8 GEMM) exact against fp64 conv")
 
 
 def phase_generator(x):
@@ -432,10 +585,16 @@ def phase_fused_int8(g, x, y_fp32):
     with mock.patch.object(q, "fused_in_epilogue", recorded):
         with counted(fused_in_epilogue, 0, "plain fused int8 forward"):
             y_p = q.fused_int8_apply(fused, x, n_blocks=N_BLOCKS)
+    fused_in_epilogue.variant_launches.clear()
     with counted(fused_in_epilogue, PER_FORWARD, "fused int8 forward"):
         with mock.patch.object(q, "fused_in_epilogue", checked):
             y_k = q.fused_int8_apply(fused, x, n_blocks=N_BLOCKS)
     torch.cuda.synchronize()
+    by_variant = dict(fused_in_epilogue.variant_launches)
+    if by_variant.get("generic") or sum(by_variant.values()) != PER_FORWARD:
+        raise AssertionError(f"fused int8 forward: epilogue launches by "
+                             f"variant {by_variant}: not all {PER_FORWARD} "
+                             "took the cluster kernel")
     del plain_inputs
     if len(site_errs) != PER_FORWARD:
         raise AssertionError(f"{len(site_errs)} epilogue sites checked")
@@ -461,8 +620,9 @@ def phase_fused_int8(g, x, y_fp32):
     ips = BATCH / t * 1e3
     log(f"phase 6 ok: fused int8 bs{BATCH} {SIZE}^2 end-to-end cosine vs plain path "
         f"{cos_plain:.6f}, vs fp32 generator {cos_fp32:.6f}; {t:.2f} "
-        f"ms/forward = {ips:.1f} img/s; {PER_FORWARD} epilogue launches per "
-        "forward")
+        f"ms/forward = {ips:.1f} img/s (before the epilogue's redesign: "
+        f"{INT8_EARLIER_IPS} img/s); {PER_FORWARD} epilogue launches per "
+        f"forward, by variant {by_variant}")
     return ips, lambda: q.fused_int8_apply(fused, x, n_blocks=N_BLOCKS)
 
 
@@ -500,6 +660,11 @@ def phase_profile(forwards):
 def main() -> int:
     import torch
 
+    sweep = sys.argv[1:2] == ["--sweep-epilogue"] and len(sys.argv) <= 3
+    if sys.argv[1:] and not sweep:
+        print("usage: chip_smoke.py [--sweep-epilogue [TABLE]]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -521,6 +686,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     phase_build()
+    if sweep:
+        sweep_epilogue(gen, *sys.argv[2:])
+        return 0
     in_tot, in_err = phase_instance_norm(gen)
     ep_tot, ep_err = phase_epilogue(gen)
     phase_int8_conv(gen)
@@ -555,7 +723,8 @@ def main() -> int:
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/int8_epilogue.py:137",
          "launches": launches["int8_epilogue"], "max_abs_err": ep_err,
          "ms": ep_tot["ms"], "plain_ms": ep_tot["plain_ms"],
-         "bound_ms": ep_bound, "bound_by": ep_by, "library_ms": None},
+         "bound_ms": ep_bound, "bound_by": ep_by, "library_ms": None,
+         "generic_variant_ms": ep_tot["generic_ms"]},
     ]
     log(f"generator img/s: fp32 {ips_fp32:.1f}, bf16 {ips_bf16:.1f}, fused "
         f"int8 {ips_int8:.1f} (bs{BATCH}, {SIZE}^2); per-forward kernel ms "

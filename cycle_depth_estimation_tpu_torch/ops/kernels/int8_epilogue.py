@@ -9,8 +9,10 @@ an optional bf16 copy of the float value.
 
 The kernel is CUDA C++ (``csrc/int8_epilogue.cu``, built by ``build.py`` and
 called through ``ctypes``); its note on the bound and the design is there.
-``plain_epilogue`` is the same arithmetic in torch: a CPU tensor takes it,
-a CUDA tensor launches the kernel or raises.
+``plan_epilogue`` picks, from the shapes alone, the kernel's variant and its
+launch geometry (channel tile, thread-block cluster, threads, dynamic shared
+memory). ``plain_epilogue`` is the same arithmetic in torch: a CPU tensor
+takes it, a CUDA tensor launches the kernel or raises.
 
 Layout is NHWC, as the im2col int8 conv produces it and as the JAX function
 takes it.
@@ -18,9 +20,10 @@ takes it.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -90,6 +93,117 @@ def _check(y, residual, relu, pad, pad_mode):
         raise ValueError(f"pad {pad} must be ≥ 0 and smaller than H and W")
 
 
+MAX_SHARED_BYTES = 232448   # 227 KB: the most one block may take on sm_90
+MAX_CLUSTER = 8             # the portable cluster size
+SM_COUNT = 132              # blocks a launch should at least have (H100 SXM)
+SM_SHARED_BYTES = 233472    # 228 KB of shared memory on one SM
+BLOCK_RESERVED_BYTES = 1024  # of them, what the system takes per block
+
+
+class EpiloguePlan(NamedTuple):
+    """How one call launches the kernel.
+
+    ``variant`` names what the numbers amount to: 'staged' (the cluster
+    kernel with all of a block's rows of y kept in shared memory: one read of
+    y), 'part_staged' (some rows kept, the others read twice), 'two_read'
+    (none kept) or 'generic' (the scalar kernel for shapes the vector path
+    cannot take; the other fields then describe its fixed geometry).
+    """
+    variant: str
+    channel_tile: int     # channels per block
+    cluster: int          # blocks that share one (sample, channel tile)
+    threads: int          # threads per block
+    shared_bytes: int     # dynamic shared memory per block
+    rows: int             # rows of the plane per block
+    staged_rows: int      # of them, rows kept in shared memory
+
+    def blocks(self, n: int, c: int) -> int:
+        return n * -(-c // self.channel_tile) * self.cluster
+
+
+def _scratch_bytes(threads: int, channel_tile: int) -> int:
+    """Reduction scratch at the head of the kernel's shared memory: per-warp
+    partial sums, the block's sums and the channels' mean and 1/std."""
+    return (threads // 32 + 2) * 2 * channel_tile * 4
+
+
+def legal_clusters(h: int, pad: int, pad_mode: str):
+    """Cluster sizes, largest first, that may split a plane of ``h`` rows:
+    every block has a row, and the first and the last block own the source
+    rows of the padded border (``pad + 1`` rows under 'reflect')."""
+    need = pad + 1 if pad > 0 and pad_mode == "reflect" else 1
+    out = []
+    for s in range(MAX_CLUSTER, 1, -1):
+        rows = -(-h // s)
+        if min(rows, h - (s - 1) * rows) >= need:
+            out.append(s)
+    return out + [1]
+
+
+def make_plan(shape, itemsize: int, channel_tile: int, cluster: int,
+              threads: int, blocks_per_sm: int = 1) -> EpiloguePlan:
+    """The cluster kernel's plan for this geometry: as many of a block's rows
+    staged as shared memory holds when ``blocks_per_sm`` blocks share an SM
+    (0 stages none), with the shared memory that takes."""
+    _, h, w, _ = shape
+    rows = -(-h // cluster)
+    scratch = _scratch_bytes(threads, channel_tile)
+    staged = 0
+    if blocks_per_sm > 0:
+        room = min(MAX_SHARED_BYTES, SM_SHARED_BYTES // blocks_per_sm
+                   - BLOCK_RESERVED_BYTES) - scratch
+        staged = max(0, min(rows, room // (w * channel_tile * itemsize)))
+    variant = ("staged" if staged == rows else
+               "part_staged" if staged else "two_read")
+    return EpiloguePlan(variant, channel_tile, cluster, threads,
+                        scratch + staged * w * channel_tile * itemsize, rows,
+                        staged)
+
+
+def plan_epilogue(shape, itemsize: int, *, pad: int = 0,
+                  pad_mode: str = "reflect", quantize: bool = True,
+                  residual: bool = False, aligned: bool = True
+                  ) -> EpiloguePlan:
+    """Pick variant and launch geometry for an NHWC ``shape`` of y with
+    ``itemsize`` bytes per element (4: int32, 2: bf16).
+
+    The cluster kernel needs C a multiple of 4, 16-byte aligned tensors
+    (``aligned``), a padded plane of fewer than 2³¹ elements (its offsets
+    are 32-bit) and at most 65,535 samples (a grid dimension); anything else
+    takes the generic kernel. A plane is split over the largest legal
+    cluster (``legal_clusters``). The channel tile is the widest of 32, 16,
+    8 that still gives ``SM_COUNT`` blocks, else the one that gives most
+    blocks. Threads and staged rows follow what the plan sweep of
+    ``chip_smoke.py --sweep-epilogue`` measured on an H100:
+
+    * a block whose rows fit a third of an SM's shared memory stages them
+      all, three blocks to an SM, with 256 threads (512 where the residual
+      is read as well: more loads to keep in flight);
+    * a block whose rows fit one SM's shared memory stages them all, with
+      1024 threads;
+    * a larger block stages the rows that fit half an SM's shared memory
+      and leaves the other half to L1, through which the other rows stream
+      twice, with 1024 threads.
+    """
+    n, h, w, c = shape
+    if not quantize:
+        pad = 0
+    if (c % 4 != 0 or not aligned or n > 65535
+            or (h + 2 * pad) * (w + 2 * pad) * c >= 2 ** 31):
+        return EpiloguePlan("generic", 8, 1, 1024, 0, h, 0)
+    cluster = legal_clusters(h, pad, pad_mode)[0]
+    tiles = [ct for ct in (32, 16, 8) if ct <= max(c, 8)]
+    blocks = {ct: n * -(-c // ct) * cluster for ct in tiles}
+    enough = [ct for ct in tiles if blocks[ct] >= SM_COUNT]
+    ct = enough[0] if enough else max(tiles, key=lambda t: (blocks[t], t))
+    plan = make_plan(shape, itemsize, ct, cluster, 512 if residual else 256, 3)
+    if plan.variant != "staged":
+        plan = make_plan(shape, itemsize, ct, cluster, 1024, 1)
+    if plan.variant != "staged":
+        plan = make_plan(shape, itemsize, ct, cluster, 1024, 2)
+    return plan
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = build.load("int8_epilogue")
@@ -97,12 +211,38 @@ def _library():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    lib.int8_epilogue_active_clusters.argtypes = [ctypes.c_int] * 12
+    lib.int8_epilogue_active_clusters.restype = ctypes.c_int
+    return lib
 
 
-def _launch(y, inv_scale, residual, relu, keep_float, pad, pad_mode, eps):
+def active_clusters(shape, itemsize: int, plan: EpiloguePlan, *, pad: int = 0,
+                    pad_mode: str = "reflect") -> int:
+    """How many clusters of ``plan`` the current CUDA device holds at once
+    (``cudaOccupancyMaxActiveClusters``); 0 if it cannot place one."""
+    n, h, w, c = shape
+    got = _library().int8_epilogue_active_clusters(
+        int(itemsize == 2), h, w, c, n, pad, int(pad_mode == "edge"),
+        plan.channel_tile, plan.cluster, plan.threads, plan.shared_bytes,
+        plan.staged_rows)
+    if got < 0:
+        raise RuntimeError(f"int8_epilogue occupancy query: CUDA error {-got}")
+    return got
+
+
+def launch(y: torch.Tensor, inv_scale: Optional[float],
+           residual: Optional[torch.Tensor] = None, *, relu: bool = False,
+           keep_float: bool = False, pad: int = 0, pad_mode: str = "reflect",
+           eps: float = 1e-5, plan: Optional[EpiloguePlan] = None):
+    """Launch the kernel on CUDA tensors that ``fused_in_epilogue`` has
+    checked, with ``plan`` or, if None, the plan ``plan_epilogue`` picks
+    (measurements pass their own)."""
+    if y.device.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, not {y.device}")
     if not y.is_contiguous() or (residual is not None
                                  and not residual.is_contiguous()):
         raise ValueError("int8 epilogue kernel needs NHWC-contiguous tensors")
@@ -114,18 +254,29 @@ def _launch(y, inv_scale, residual, relu, keep_float, pad, pad_mode, eps):
     z = None
     if keep_float or residual is not None or inv_scale is None:
         z = torch.empty(y.shape, dtype=torch.bfloat16, device=y.device)
-    fn = _library()
+    if plan is None:
+        aligned = all(t is None or t.data_ptr() % 16 == 0
+                      for t in (y, residual, q, z))
+        plan = plan_epilogue(y.shape, y.element_size(), pad=pad,
+                             pad_mode=pad_mode, quantize=q is not None,
+                             residual=residual is not None, aligned=aligned)
+    fn = _library().int8_epilogue
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
-    err = fn(y.data_ptr(), int(y.dtype == torch.bfloat16),
-             None if residual is None else residual.data_ptr(),
-             None if q is None else q.data_ptr(),
-             None if z is None else z.data_ptr(),
-             n, h, w, c, 0.0 if inv_scale is None else float(inv_scale),
-             int(relu), pad, int(pad_mode == "edge"), float(eps), stream)
+        err = fn(y.data_ptr(), int(y.dtype == torch.bfloat16),
+                 None if residual is None else residual.data_ptr(),
+                 None if q is None else q.data_ptr(),
+                 None if z is None else z.data_ptr(),
+                 n, h, w, c, 0.0 if inv_scale is None else float(inv_scale),
+                 int(relu), pad, int(pad_mode == "edge"), float(eps),
+                 int(plan.variant != "generic"), plan.channel_tile,
+                 plan.cluster, plan.threads, plan.shared_bytes,
+                 plan.staged_rows, stream)
     if err != 0:
-        raise RuntimeError(f"int8_epilogue kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"int8_epilogue kernel launch failed: CUDA error "
+                           f"{err} with {plan}")
     fused_in_epilogue.launches += 1
+    fused_in_epilogue.variant_launches[plan.variant] += 1
     return q, z
 
 
@@ -155,8 +306,11 @@ def fused_in_epilogue(y: torch.Tensor, inv_scale: Optional[float],
                               pad_mode=pad_mode, eps=eps)
     if y.device.type != "cuda":
         raise ValueError(f"fused_in_epilogue: unsupported device {y.device}")
-    return _launch(y, inv_scale, residual, relu, keep_float, pad, pad_mode, eps)
+    return launch(y, inv_scale, residual, relu=relu, keep_float=keep_float,
+                  pad=pad, pad_mode=pad_mode, eps=eps)
 
 
 #: kernel launches since the caller last set this to 0
 fused_in_epilogue.launches = 0
+#: the same by ``EpiloguePlan.variant``; the caller clears it
+fused_in_epilogue.variant_launches = collections.Counter()

@@ -31,8 +31,15 @@ from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
     instance_norm,
 )
 from cycle_depth_estimation_tpu_torch.ops.kernels.int8_epilogue import (
+    MAX_CLUSTER,
+    MAX_SHARED_BYTES,
+    SM_COUNT,
     fused_in_epilogue,
+    legal_clusters,
+    make_plan,
     pad_nhwc,
+    plain_epilogue,
+    plan_epilogue,
 )
 
 
@@ -179,6 +186,140 @@ def test_epilogue_checks_inputs():
     assert fused_in_epilogue.launches == 0
     with pytest.raises(ValueError):
         fused_in_epilogue(y.to("meta"), 1.0, relu=True)
+
+
+# The epilogue's launch plan is plain Python, so it is held here: the sites
+# of one fused int8 forward at batch 8, 256², ngf 64 (name → NHWC shape,
+# bytes per element of y, plan arguments), as the smoke run on the card
+# drives them.
+_B, _S, _C = 8, 256, 64
+_PLAN_SITES = {
+    "conv_in": ((_B, _S, _S, _C), 4, dict()),
+    "down0": ((_B, _S // 2, _S // 2, 2 * _C), 4, dict()),
+    "down1": ((_B, _S // 4, _S // 4, 4 * _C), 4, dict(pad=1)),
+    "block_conv1": ((_B, _S // 4, _S // 4, 4 * _C), 4, dict(pad=1)),
+    "block_conv2": ((_B, _S // 4, _S // 4, 4 * _C), 4,
+                    dict(pad=1, residual=True)),
+    "last_block_float": ((_B, _S // 4, _S // 4, 4 * _C), 4,
+                         dict(quantize=False, residual=True)),
+    "up0_float": ((_B, _S // 2, _S // 2, 2 * _C), 2, dict(quantize=False)),
+    "up1_pad3": ((_B, _S, _S, _C), 2, dict(pad=3)),
+}
+
+
+def _assert_legal(plan, shape, itemsize, pad, pad_mode):
+    """What the CUDA launcher demands of a cluster-kernel plan."""
+    n, h, w, c = shape
+    assert c % 4 == 0 and plan.channel_tile in (8, 16, 32)
+    assert 1 <= plan.cluster <= MAX_CLUSTER
+    assert plan.threads % 32 == 0 and 2 * plan.channel_tile <= plan.threads <= 1024
+    assert plan.rows == -(-h // plan.cluster)
+    last = h - (plan.cluster - 1) * plan.rows
+    assert last >= 1
+    if plan.cluster > 1 and pad and pad_mode == "reflect":
+        # the first and the last block own the border's source rows
+        assert min(plan.rows, last) >= pad + 1
+    assert 0 <= plan.staged_rows <= plan.rows
+    scratch = (plan.threads // 32 + 2) * 2 * plan.channel_tile * 4
+    need = scratch + plan.staged_rows * w * plan.channel_tile * itemsize
+    assert need <= plan.shared_bytes <= MAX_SHARED_BYTES
+    assert plan.variant == {plan.rows: "staged", 0: "two_read"}.get(
+        plan.staged_rows, "part_staged")
+
+
+@pytest.mark.parametrize("site", sorted(_PLAN_SITES))
+def test_epilogue_plan_of_main_path_sites(site):
+    shape, itemsize, kw = _PLAN_SITES[site]
+    plan = plan_epilogue(shape, itemsize, **kw)
+    pad = kw.get("pad", 0)
+    assert plan.variant != "generic"
+    _assert_legal(plan, shape, itemsize, pad, "reflect")
+    assert plan.blocks(shape[0], shape[3]) >= SM_COUNT
+    assert plan.rows >= pad + 1
+    if shape[1] == _S // 4:
+        # a 64² slab fits shared memory: y crosses device memory once
+        assert plan.variant == "staged"
+
+
+_RAGGED_PLANS = {
+    "c24_h10_pad3": ((2, 10, 10, 24), dict(pad=3)),
+    "c24_h10_pad3_edge": ((2, 10, 12, 24), dict(pad=3, pad_mode="edge")),
+    "c40_h67_pad2_edge": ((3, 67, 33, 40), dict(pad=2, pad_mode="edge")),
+    "c72_h50_pad3": ((3, 50, 41, 72), dict(pad=3)),
+    "c4_h4_pad3": ((1, 4, 4, 4), dict(pad=3)),
+}
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("case", sorted(_RAGGED_PLANS))
+def test_epilogue_plan_of_ragged_shapes_is_legal(case, itemsize):
+    shape, kw = _RAGGED_PLANS[case]
+    plan = plan_epilogue(shape, itemsize, **kw)
+    assert plan.variant != "generic"
+    _assert_legal(plan, shape, itemsize, kw["pad"], kw.get("pad_mode", "reflect"))
+
+
+def test_epilogue_plan_generic_cases_and_split_rule():
+    # C not a multiple of 4, unaligned tensors, a plane past 32-bit offsets
+    assert plan_epilogue((2, 10, 10, 6), 4, pad=3).variant == "generic"
+    assert plan_epilogue((8, 64, 64, 256), 4, aligned=False).variant == "generic"
+    assert plan_epilogue((1, 32768, 32768, 4), 4).variant == "generic"
+    # H = 10 under reflect pad 3: blocks of at least 4 rows, so 2 blocks;
+    # under 'edge' one row each is enough
+    assert legal_clusters(10, 3, "reflect") == [2, 1]
+    assert legal_clusters(10, 3, "edge")[0] == 5
+    assert legal_clusters(64, 1, "reflect")[0] == 8
+    assert legal_clusters(1, 0, "reflect") == [1]
+    # a float-only call bakes no pad, so its split ignores the argument
+    assert plan_epilogue((2, 10, 10, 24), 4, pad=3, quantize=False).cluster == 5
+    # staging shrinks with the blocks that are to share an SM
+    staged = [make_plan((8, 256, 256, 64), 4, 16, 8, 1024, k).staged_rows
+              for k in (0, 2, 1)]
+    assert staged[0] == 0 < staged[1] < staged[2] < 32
+
+
+_RAGGED_EPILOGUE = {
+    "c24_h10_pad3": ((2, 10, 10, 24), "int32", dict(relu=True, pad=3)),
+    "c6_h10_pad3": ((2, 10, 10, 6), "int32", dict(residual=True, pad=3)),
+    "c24_h10_pad3_edge": ((2, 10, 12, 24), "bf16",
+                          dict(relu=True, pad=3, pad_mode="edge",
+                               keep_float=True)),
+    "c6_pad2_edge": ((2, 9, 7, 6), "int32", dict(relu=True, pad=2,
+                                                 pad_mode="edge")),
+}
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("case", sorted(_RAGGED_EPILOGUE))
+def test_epilogue_plain_matches_jax_on_ragged_shapes(case, use_pallas):
+    shape, in_dtype, kw = _RAGGED_EPILOGUE[case]
+    rng = np.random.RandomState(6)
+    if in_dtype == "int32":
+        y = rng.randint(-30000, 30000, shape).astype(np.int32)
+        y_j, y_t = jnp.asarray(y), torch.from_numpy(y)
+    else:
+        y = (rng.randn(*shape) * 3).astype(np.float32)
+        y_j = jnp.asarray(y, jnp.bfloat16)
+        y_t = torch.from_numpy(y).to(torch.bfloat16)
+    jkw, tkw = dict(kw), dict(kw)
+    res_t = None
+    if jkw.pop("residual", False):
+        h = rng.randn(*shape).astype(np.float32)
+        jkw["residual"] = jnp.asarray(h, jnp.bfloat16)
+        res_t = torch.from_numpy(h).to(torch.bfloat16)
+    tkw.pop("residual", None)
+    qj, zj = jax_fused_in_epilogue(y_j, jnp.float32(25.0), use_pallas=use_pallas,
+                                   interpret=True, **jkw)
+    qt, zt = plain_epilogue(y_t, 25.0, res_t, **tkw)
+
+    pad = kw["pad"]
+    d = np.abs(qt.numpy().astype(np.int32) - np.asarray(qj).astype(np.int32))
+    assert d.shape == (shape[0], shape[1] + 2 * pad, shape[2] + 2 * pad, shape[3])
+    assert d.max() <= 1 and np.mean(d > 0) <= 1e-3, (d.max(), np.mean(d > 0))
+    assert (zt is None) == (zj is None)
+    if zj is not None:
+        zj = np.asarray(zj, np.float32)
+        assert np.all(np.abs(zt.float().numpy() - zj) <= _bf16_ulp(zj))
 
 
 @pytest.mark.parametrize("mode", ["reflect", "edge"])
