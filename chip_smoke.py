@@ -9,6 +9,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 1. InstanceNorm kernel (Triton) against its plain torch version at the
    generator's three plane shapes, fp32 and bf16, with kernel, plain,
    ``F.instance_norm`` and byte-bound times.
+1b. InstanceNorm backward kernel (Triton) against its plain version at the
+   six plane shapes of a CycleGAN train step (three of G, three of D, the
+   31² one masked), fp32 and bf16, with kernel, plain, library (autograd's
+   backward of ``F.instance_norm``) and byte-bound times.
 2. int8 epilogue kernel (CUDA C++) against its plain version at every site
    variant of ``fused_int8_apply``, with the plan each site takes, its time
    beside its bound and beside the generic (earlier) kernel's; then ragged
@@ -29,11 +33,21 @@ Phases, in order; any failure raises and the script exits nonzero:
    the output against the plain path and against fp32.
 7. Where one bf16 and one fused int8 forward spend device time
    (``torch.profiler``), and the device's idle share.
+8. CycleGAN training at full width (two 9-block generators, ngf 64, two
+   3-layer PatchGANs, ndf 64), batch 8, 256², fp32, seeded init and batch:
+   one step through the kernels against one through the plain versions
+   (losses, parameters under Adam's sign rule), 192 forward and 192
+   backward InstanceNorm launches per step, pool count, steps/s, img/s,
+   peak memory, and one profiled step (idle share, top kernels, the
+   InstanceNorm kernels' time per step beside their bounds).
+9. The train CLI (``python -m cycle_depth_estimation_tpu_torch.train``, in
+   a process of its own) on 4 PNGs a folder at 64², full widths:
+   checkpoints, logs, HTML page; then a resume through its ``main``.
 
-Launch counts are zeroed just before phase 3 and read after phase 7: that
-run is the main path. The last three lines are a JSON object with every
-kernel's numbers, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+Launch counts are zeroed just before phase 3 and read after phase 7 (the
+serving path), and again before phase 8 and after phase 9 (the training
+path). The last three lines are a JSON object with every kernel's numbers,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --sweep-epilogue [TABLE]
 
@@ -46,8 +60,10 @@ timing to the file TABLE if one is named, and prints no result line.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -60,13 +76,28 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 L2_BYTES = 50 * 2 ** 20
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 IN_FLOPS_PER_ELEM = 5         # sum, sum of squares, subtract, multiply
+IN_BWD_FLOPS_PER_ELEM = 10    # x̂, two sums, then x̂ again and dx
 EP_FLOPS_PER_ELEM = 9         # IN + relu/residual + scale, round, clip
 BATCH, SIZE, NGF, N_BLOCKS = 8, 256, 64, 9
+NDF = 64
 
 # InstanceNorm planes of one generator forward: (N, C, H, W) → calls
 IN_SHAPES = {(BATCH, NGF, SIZE, SIZE): 2,
              (BATCH, 2 * NGF, SIZE // 2, SIZE // 2): 2,
              (BATCH, 4 * NGF, SIZE // 4, SIZE // 4): 2 * N_BLOCKS + 1}
+
+# InstanceNorm planes of one CycleGAN train step (forward and backward
+# alike): 6 generator passes and 18 discriminator passes (2 in the G loss,
+# 4 D steps × 2 nets × real and fake), 3 norms each
+G_PASSES, D_PASSES = 6, 2 + 4 * 2 * 2
+TRAIN_IN_SHAPES = {
+    **{shape: G_PASSES * calls for shape, calls in IN_SHAPES.items()},
+    (BATCH, 2 * NDF, SIZE // 4, SIZE // 4): D_PASSES,
+    (BATCH, 4 * NDF, SIZE // 8, SIZE // 8): D_PASSES,
+    (BATCH, 8 * NDF, SIZE // 8 - 1, SIZE // 8 - 1): D_PASSES,
+}
+TRAIN_PER_STEP = sum(TRAIN_IN_SHAPES.values())
+TRAIN_STEPS_TIMED = 3
 
 # fused_int8_apply epilogue sites: name → (NHWC shape, input dtype,
 # quantize?, kwargs, calls per forward)
@@ -254,6 +285,95 @@ def phase_instance_norm(gen):
                 totals["flops"] += calls * IN_FLOPS_PER_ELEM * x.numel()
             del x, xs, want, got
     log(f"phase 1 ok: instance_norm per bf16 forward {totals['ms']:.4f} ms")
+    return totals, max_err
+
+
+def profiled_device_ms(fn, inputs, iters=12):
+    """Device time per call of ``fn(*args)`` as ``torch.profiler`` sums it
+    over the kernels ``iters`` eager calls launch: for a call that cannot be
+    captured in a CUDA graph. Gaps between kernels are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy <= 0:
+        raise AssertionError("profiler recorded no device time")
+    return busy / 1e3 / iters
+
+
+def phase_instance_norm_backward(gen):
+    import torch
+    import torch.nn.functional as F
+
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm_backward, plain_instance_norm_backward,
+        plain_instance_norm_stats)
+
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, calls in TRAIN_IN_SHAPES.items():
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1
+                 ).to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            stats = plain_instance_norm_stats(x)
+            want = plain_instance_norm_backward(x, dy, stats=stats)
+            with counted(instance_norm_backward, 1, f"in_bwd {shape}"):
+                got = instance_norm_backward(x, dy, stats=stats)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if got.dtype != dtype:
+                raise AssertionError(f"in_bwd {shape}: dx is {got.dtype}")
+            if dtype == torch.float32:
+                ok = float(err.max()) <= 1e-4
+            else:
+                ok = bool((err <= 2 * bf16_ulp(want)).all())
+            max_err = max(max_err, float(err.max()))
+            if not ok:
+                raise AssertionError(f"in_bwd {shape} {dtype}: max abs err "
+                                     f"{float(err.max())}")
+            ins = copies_past_l2(x, dy, *stats)
+            t_k = device_ms_per_call(
+                lambda a, g, m, r: instance_norm_backward(a, g, stats=(m, r)),
+                ins)
+            t_p = device_ms_per_call(
+                lambda a, g, m, r: plain_instance_norm_backward(
+                    a, g, stats=(m, r)), ins)
+            lib_ins = []
+            for a, g, _, _ in ins:
+                a = a.detach().requires_grad_(True)
+                lib_ins.append((F.instance_norm(a, eps=1e-5), a, g))
+            t_l = profiled_device_ms(
+                lambda y, a, g: torch.autograd.grad(y, a, g, retain_graph=True),
+                lib_ins)
+            nbytes = 3 * x.numel() * x.element_size() + 2 * 4 * stats[0].numel()
+            flops = IN_BWD_FLOPS_PER_ELEM * x.numel()
+            t_b, _ = bound(nbytes, flops)
+            if t_k < t_b:
+                raise AssertionError(f"in_bwd {shape}: {t_k} ms is under its "
+                                     f"bound of {t_b} ms: wrong count or timer")
+            log(f"phase 1b: instance_norm_bwd {tuple(shape)} "
+                f"{str(dtype)[6:]}: max_abs_err {float(err.max()):.3g} kernel "
+                f"{t_k:.4f} ms plain {t_p:.4f} ms autograd F.instance_norm "
+                f"backward {t_l:.4f} ms bound {t_b:.4f} ms "
+                f"({t_k / t_b:.2f}x) (x{calls} per step)")
+            if dtype == torch.float32:  # the train step's dtype
+                totals["ms"] += calls * t_k
+                totals["plain_ms"] += calls * t_p
+                totals["library_ms"] += calls * t_l
+                totals["bytes"] += calls * nbytes
+                totals["flops"] += calls * flops
+            del x, dy, stats, want, got, ins, lib_ins
+    log(f"phase 1b ok: instance_norm_bwd per fp32 train step "
+        f"({TRAIN_PER_STEP} calls) {totals['ms']:.4f} ms")
     return totals, max_err
 
 
@@ -657,6 +777,289 @@ def phase_profile(forwards):
     log("phase 7 ok")
 
 
+def train_config(**kw):
+    from cycle_depth_estimation_tpu_torch.config import (Config,
+                                                         apply_model_defaults)
+
+    return apply_model_defaults(Config(
+        model="cycle_gan", batch_size=BATCH, fine_size=SIZE, ngf=NGF, ndf=NDF,
+        net_g=f"resnet_{N_BLOCKS}blocks", device="cuda", **kw))
+
+
+def compare_params(before, kernel_nets, plain_nets, cfg):
+    """Parameters after one step through the kernels against one through
+    the plain versions, and the generators' gradients of that step (both
+    paths start from the same parameters there). Adam's first step moves a
+    parameter by lr·g/(|g| + eps), about sign(g)·lr: where |g| is not far
+    above eps = 1e-8, or the two paths' g differ in sign, the rounding
+    differences of the two paths move it by up to 2·lr per step. The conv
+    biases that an InstanceNorm follows have zero gradient up to rounding
+    (``biases_before_norm``) and are counted apart. Raises if any parameter
+    is further apart than 2·lr per step or did not move; returns counts."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models.networks import (
+        biases_before_norm)
+
+    out = dict(total=0, past=0, flipped=0, noise_total=0, noise_past=0,
+               worst_within=0.0, max_g_past=0.0, g_rel=0.0, g_rel_by={})
+    for name, net in kernel_nets.items():
+        steps = 1 if name.startswith("G") else cfg.d_steps_per_g
+        limit = 2 * cfg.lr * steps + 1e-5
+        noise = biases_before_norm(net)
+        plain = dict(plain_nets[name].named_parameters())
+        for key, param in net.named_parameters():
+            got, ref = param.detach(), plain[key].detach()
+            p0 = before[name][key]
+            diff = (got - ref).abs()
+            if float(diff.max()) > limit:
+                raise AssertionError(f"train step {name}.{key}: kernel vs "
+                                     f"plain {float(diff.max())} > {limit}")
+            if not bool((got != p0).any()):
+                raise AssertionError(f"train step: {name}.{key} did not move")
+            past = diff > 1e-5
+            if key in noise:
+                out["noise_past"] += int(past.sum())
+                out["noise_total"] += diff.numel()
+                continue
+            flip = past & ((got - p0).sign() != (ref - p0).sign())
+            out["total"] += diff.numel()
+            out["past"] += int(past.sum())
+            out["flipped"] += int(flip.sum())
+            out["worst_within"] = max(out["worst_within"],
+                                      float(torch.where(past, 0, diff).max()))
+            if name.startswith("G"):
+                g_k, g_p = param.grad, plain[key].grad
+                rel = float((g_k - g_p).norm() / g_p.norm())
+                out["g_rel_by"][f"{name}.{key}"] = rel
+                out["g_rel"] = max(out["g_rel"], rel)
+                if bool(past.any()):
+                    out["max_g_past"] = max(out["max_g_past"],
+                                            float(g_p[past].abs().max()))
+    return out
+
+
+def phase_train_step():
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.models import quantization as q
+    from cycle_depth_estimation_tpu_torch.ops import layers
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm, instance_norm_backward, plain_instance_norm,
+        plain_instance_norm_backward)
+
+    class PlainInstanceNorm(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, eps):
+            ctx.save_for_backward(x)
+            ctx.eps = eps
+            return plain_instance_norm(x, eps)
+
+        @staticmethod
+        def backward(ctx, dy):
+            (x,) = ctx.saved_tensors
+            return plain_instance_norm_backward(x, dy, ctx.eps), None
+
+    cfg = train_config()
+    model = create_model(cfg)
+    batch = {"img_source": torch.from_numpy(
+                 q.synthetic_calibration_batch(4, BATCH, SIZE)).cuda(),
+             "img_target": torch.from_numpy(
+                 q.synthetic_calibration_batch(5, BATCH, SIZE)).cuda()}
+
+    # One step from the same seeded init through the kernels, through the
+    # plain versions (twice), and through F.instance_norm (autograd's
+    # backward), cuDNN deterministic. The library path measures how far a
+    # third correct implementation lands from the plain one, the yardstick
+    # for the kernel path's distance; the second plain run measures what is
+    # left that no InstanceNorm causes.
+    torch.backends.cudnn.deterministic = True
+    before = {k: {n: v.clone() for n, v in net.state_dict().items()}
+              for k, net in model.init_state().nets.items()}
+    plain_in = lambda x, eps=1e-5: PlainInstanceNorm.apply(x, eps)  # noqa: E731
+    runs = {}
+    for path, patch, expect in (
+            ("kernel", None, TRAIN_PER_STEP),
+            ("plain", plain_in, 0),
+            ("library", lambda x, eps=1e-5: F.instance_norm(x, eps=eps), 0),
+            ("plain again", plain_in, 0)):
+        st = model.init_state()
+        with (mock.patch.object(layers, "instance_norm", patch) if patch
+              else contextlib.nullcontext()), \
+                counted(instance_norm, expect, f"{path} step forward"), \
+                counted(instance_norm_backward, expect, f"{path} step backward"):
+            st, m = model.train_step(st, batch)
+        runs[path] = (st, {k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    state, m_k = runs["kernel"]
+    if not all(math.isfinite(v) for st, m in runs.values() for v in m.values()):
+        raise AssertionError(f"train step losses not finite: {runs}")
+    counts = {k: p.count for k, p in state.pools.items()}
+    if set(counts.values()) != {4 * BATCH}:
+        raise AssertionError(f"pool counts {counts}, expected {4 * BATCH}")
+    cmp, rel = {}, {}
+    for path, other in (("kernel", "plain"), ("library", "plain"),
+                        ("plain again", "plain"), ("kernel", "library")):
+        c = compare_params(before, runs[path][0].nets, runs[other][0].nets,
+                           cfg)
+        m_o = runs[other][1]
+        r = {k: abs(v - m_o[k]) / abs(m_o[k]) for k, v in runs[path][1].items()}
+        if other == "plain":
+            cmp[path], rel[path] = c, r
+        log(f"phase 8: {path} vs {other} step: relative loss diffs "
+            + " ".join(f"{k} {v:.1e}" for k, v in r.items())
+            + f"; generator gradients: max relative L2 diff "
+            f"{c['g_rel']:.2e}; {c['total']} parameters outside the "
+            f"pre-norm biases: {c['past']} ({c['past'] / c['total']:.2e}) "
+            f"past 1e-5 (all within 2·lr per step; largest generator |g| "
+            f"among them {c['max_g_past']:.2e}), of which {c['flipped']} "
+            f"({c['flipped'] / c['total']:.2e}) with the update's sign "
+            f"flipped; the rest within {c['worst_within']:.2e}; pre-norm "
+            f"biases (zero gradient up to rounding): {c['noise_past']} of "
+            f"{c['noise_total']} past 1e-5")
+    worst_g = sorted(cmp["kernel"]["g_rel_by"].items(), key=lambda kv: -kv[1])
+    log("phase 8: largest generator gradient diffs, kernel (library) vs "
+        "plain: " + ", ".join(f"{k} {v:.2e} ({cmp['library']['g_rel_by'][k]:.2e})"
+                              for k, v in worst_g[:4]))
+    log(f"phase 8: losses {m_k}; {TRAIN_PER_STEP} forward and "
+        f"{TRAIN_PER_STEP} backward InstanceNorm launches per step; pool "
+        f"counts {counts}")
+    del runs, st, before
+
+    # steady-state steps, strict fp32 (TF32 off) then cuDNN's TF32 (the
+    # torch default the CLI runs with)
+    rates = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        model.train_step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with counted(instance_norm, TRAIN_STEPS_TIMED * TRAIN_PER_STEP,
+                     "timed steps"):
+            t = time.perf_counter()
+            for _ in range(TRAIN_STEPS_TIMED):
+                state, _ = model.train_step(state, batch)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t) / TRAIN_STEPS_TIMED
+        rates[tf32] = (dt, torch.cuda.max_memory_allocated())
+    torch.backends.cudnn.allow_tf32 = False
+    (dt, peak), (dt32, _) = rates[False], rates[True]
+    log(f"phase 8: train step bs{BATCH} {SIZE}^2 fp32 (TF32 off): "
+        f"{dt * 1e3:.1f} ms/step = {1 / dt:.3f} steps/s = {BATCH / dt:.1f} "
+        f"img/s; peak memory {peak / 2 ** 30:.2f} GiB; with cuDNN TF32: "
+        f"{dt32 * 1e3:.1f} ms/step = {BATCH / dt32:.1f} img/s")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        raise AssertionError("profile of the train step: no device time")
+    log(f"phase 8: profiled train step: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"phase 8:   {e.self_device_time_total / 1e3 / busy:6.1%} "
+            f"{e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
+            f"{e.key[:90]}")
+    elems = sum(calls * math.prod(shape)
+                for shape, calls in TRAIN_IN_SHAPES.items())
+    stats = 2 * 4 * sum(calls * shape[0] * shape[1]
+                        for shape, calls in TRAIN_IN_SHAPES.items())
+    for kname, nbytes, flops in (
+            ("in_fwd", 2 * 4 * elems + stats, IN_FLOPS_PER_ELEM * elems),
+            ("in_bwd", 3 * 4 * elems + stats, IN_BWD_FLOPS_PER_ELEM * elems)):
+        ms = sum(e.self_device_time_total for e in kernels
+                 if kname in e.key) / 1e3
+        calls = sum(e.count for e in kernels if kname in e.key)
+        t_b, _ = bound(nbytes, flops)
+        log(f"phase 8:   {kname}: {ms:.3f} ms in {calls} calls per step "
+            f"({ms / busy:.1%} of busy), bound {t_b:.3f} ms "
+            f"({ms / t_b:.2f}x)")
+    # Checked last, so that a failing run still prints every number above.
+    # Limits: 1e-4 relative on each loss and on the generator gradients, and
+    # on the share of sign-flipped updates; or, where the library path lands
+    # further than that from the plain one, no further than twice its
+    # distance.
+    k, lib = cmp["kernel"], cmp["library"]
+    flips = {p: c["flipped"] / c["total"] for p, c in cmp.items()}
+    over = [name for name in rel["kernel"]
+            if rel["kernel"][name] > max(1e-4, 2 * rel["library"][name])]
+    if over or k["g_rel"] > max(1e-4, 2 * lib["g_rel"]) or \
+            flips["kernel"] > max(1e-4, 2 * flips["library"]):
+        raise AssertionError(
+            f"train step, kernel vs plain: losses {over} past their limit; "
+            f"gradients {k['g_rel']} (library {lib['g_rel']}); sign-flipped "
+            f"share {flips['kernel']} (library {flips['library']})")
+    log("phase 8 ok")
+    return BATCH / dt
+
+
+def phase_train_cli():
+    """``python -m cycle_depth_estimation_tpu_torch.train`` for one epoch in
+    a process of its own, then a resume through the same ``main`` here."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from cycle_depth_estimation_tpu_torch.train import main as train_main
+
+    size = 64
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(1)
+        for phase in ("trainA", "trainB", "testA", "testB"):
+            os.makedirs(os.path.join(tmp, phase))
+            for i in range(4):
+                Image.fromarray(rng.randint(0, 256, (80, 80, 3), np.uint8)
+                                ).save(os.path.join(tmp, phase, f"im{i}.png"))
+        args = ["--dataroot", tmp, "--checkpoints_dir",
+                os.path.join(tmp, "ck"), "--name", "smoke", "--model",
+                "cycle_gan", "--ngf", str(NGF), "--ndf", str(NDF),
+                "--load_size", str(size + 8), "--fine_size",
+                str(size), "--batch_size", "2", "--niter", "1",
+                "--niter_decay", "0", "--save_epoch_freq", "1",
+                "--print_freq", "2", "--display_freq", "4",
+                "--device", "cuda"]
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cycle_depth_estimation_tpu_torch.train",
+             *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        t_cli = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        expr = os.path.join(tmp, "ck", "smoke")
+        want = [f"1_net_{n}.pth" for n in ("D_A", "D_B", "G_A", "G_B")]
+        want += ["1_train_state.pth", "loss_log.txt", "scalars.jsonl",
+                 os.path.join("web", "index.html")]
+        missing = [f for f in want if not os.path.exists(os.path.join(expr, f))]
+        if missing:
+            raise AssertionError(f"train CLI did not write {missing}")
+        with open(os.path.join(expr, "loss_log.txt")) as f:
+            lines = [ln for ln in f if ln.startswith("(epoch: 1")]
+        step = torch.load(os.path.join(expr, "1_train_state.pth"),
+                          map_location="cpu", weights_only=True)["step"]
+        resumed = train_main(args + ["--continue_train", "--epoch_count", "2",
+                                     "--niter", "2"])
+        if not (step == 2 and resumed.step == 4 and len(lines) == 2
+                and os.path.exists(os.path.join(expr, "2_net_G_A.pth"))):
+            raise AssertionError(f"train CLI: steps {step}, {resumed.step}, "
+                                 f"loss lines {len(lines)}")
+    log(f"phase 9 ok: python -m cycle_depth_estimation_tpu_torch.train at ngf "
+        f"{NGF} ndf {NDF} {size}^2 batch 2 ({t_cli:.1f} s) wrote the four "
+        "nets, the train state, loss_log.txt, scalars.jsonl and "
+        "web/index.html; resumed from them for epoch 2")
+
+
 def main() -> int:
     import torch
 
@@ -671,7 +1074,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cycle_depth_estimation_tpu_torch.models import quantization
     from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
-        instance_norm)
+        instance_norm, instance_norm_backward)
     from cycle_depth_estimation_tpu_torch.ops.kernels.int8_epilogue import (
         fused_in_epilogue)
 
@@ -690,6 +1093,7 @@ def main() -> int:
         sweep_epilogue(gen, *sys.argv[2:])
         return 0
     in_tot, in_err = phase_instance_norm(gen)
+    bwd_tot, bwd_err = phase_instance_norm_backward(gen)
     ep_tot, ep_err = phase_epilogue(gen)
     phase_int8_conv(gen)
 
@@ -702,34 +1106,58 @@ def main() -> int:
     phase_cli()
     ips_int8, fwd_int8 = phase_fused_int8(g, x, y_fp32)
     phase_profile({"bf16 generator": fwd_bf16, "fused int8": fwd_int8})
-    launches = {"instance_norm": instance_norm.launches,
-                "int8_epilogue": fused_in_epilogue.launches}
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    serving = {"instance_norm": instance_norm.launches,
+               "int8_epilogue": fused_in_epilogue.launches}
+    del g, y_fp32, fwd_bf16, fwd_int8
+    torch.cuda.empty_cache()
+
+    instance_norm.launches = 0
+    instance_norm_backward.launches = 0
+    fused_in_epilogue.launches = 0
+    ips_train = phase_train_step()
+    phase_train_cli()
+    training = {"instance_norm": instance_norm.launches,
+                "instance_norm_bwd": instance_norm_backward.launches}
+    for path, counts in (("serving", serving), ("training", training)):
+        for name, n in counts.items():
+            if n == 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"{path} path")
 
     in_bound, in_by = bound(in_tot["bytes"], in_tot["flops"])
+    bwd_bound, bwd_by = bound(bwd_tot["bytes"], bwd_tot["flops"])
     ep_bound, ep_by = bound(ep_tot["bytes"], ep_tot["flops"])
+    in_source = "cycle_depth_estimation_tpu_torch/ops/kernels/instance_norm.py"
     kernels = [
-        {"name": "instance_norm", "route": "triton",
-         "source": "cycle_depth_estimation_tpu_torch/ops/kernels/instance_norm.py",
+        {"name": "instance_norm", "route": "triton", "source": in_source,
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/instance_norm.py:55",
-         "launches": launches["instance_norm"], "max_abs_err": in_err,
+         "launches": serving["instance_norm"] + training["instance_norm"],
+         "launches_by_path": {"serving": serving["instance_norm"],
+                              "training": training["instance_norm"]},
+         "max_abs_err": in_err,
          "ms": in_tot["ms"], "plain_ms": in_tot["plain_ms"],
          "bound_ms": in_bound, "bound_by": in_by,
          "library_ms": in_tot["library_ms"]},
+        {"name": "instance_norm_bwd", "route": "triton", "source": in_source,
+         "replaces": "cycle_depth_estimation_tpu/ops/pallas/instance_norm.py:105",
+         "launches": training["instance_norm_bwd"], "max_abs_err": bwd_err,
+         "ms": bwd_tot["ms"], "plain_ms": bwd_tot["plain_ms"],
+         "bound_ms": bwd_bound, "bound_by": bwd_by,
+         "library_ms": bwd_tot["library_ms"]},
         {"name": "int8_epilogue", "route": "cuda",
          "source": "cycle_depth_estimation_tpu_torch/csrc/int8_epilogue.cu",
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/int8_epilogue.py:137",
-         "launches": launches["int8_epilogue"], "max_abs_err": ep_err,
+         "launches": serving["int8_epilogue"], "max_abs_err": ep_err,
          "ms": ep_tot["ms"], "plain_ms": ep_tot["plain_ms"],
          "bound_ms": ep_bound, "bound_by": ep_by, "library_ms": None,
          "generic_variant_ms": ep_tot["generic_ms"]},
     ]
     log(f"generator img/s: fp32 {ips_fp32:.1f}, bf16 {ips_bf16:.1f}, fused "
-        f"int8 {ips_int8:.1f} (bs{BATCH}, {SIZE}^2); per-forward kernel ms "
-        "are sums over the 23 calls of one forward (bf16 for instance_norm); "
-        f"total {time.perf_counter() - t0:.1f} s")
+        f"int8 {ips_int8:.1f}; CycleGAN training fp32 {ips_train:.1f} img/s "
+        f"(bs{BATCH}, {SIZE}^2); kernel ms are sums over the calls of one "
+        "forward (23: instance_norm in bf16, int8_epilogue) or of one fp32 "
+        f"train step ({TRAIN_PER_STEP}: instance_norm_bwd); total "
+        f"{time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]

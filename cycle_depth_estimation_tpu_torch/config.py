@@ -1,13 +1,16 @@
-"""Config for the port's serving path: the subset of the JAX package's
-``Config`` that the test CLI reads, with the same field names, defaults and
-two-phase parse (base flags, then per-model defaults for flags the user did
-not set). ``device`` is new: the port runs on ``cuda`` unless told ``cpu``;
-``pth_path`` is the flag the JAX CLI parses by hand.
+"""Config of the port: the subset of the JAX package's ``Config`` that the
+test CLI, the CycleGAN model and the train CLI read, with the same field
+names, defaults, reference flag aliases (``--loadSize``, ``--netD``,
+``--lambda_A`` …) and two-phase parse (base flags, then per-model defaults
+for flags the user did not set). ``device`` is new: the port runs on
+``cuda`` unless told ``cpu``; ``pth_path`` is the flag the JAX CLI parses by
+hand. Flags of slices not ported yet are absent, so argparse rejects them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -19,6 +22,10 @@ _FLAG_ALIASES = {
     "fineSize": "fine_size",
     "batchSize": "batch_size",
     "netG": "net_g",
+    "netD": "net_d",
+    "n_layers_D": "n_layers_d",
+    "lambda_A": "lambda_a",
+    "lambda_B": "lambda_b",
 }
 
 
@@ -32,20 +39,48 @@ class Config:
     input_nc: int = 3
     output_nc: int = 3
     ngf: int = 64
+    ndf: int = 64
+    net_d: str = "basic"
     net_g: str = "resnet_9blocks"
+    n_layers_d: int = 3
     name: str = "experiment_name"
     dataset_mode: str = "unaligned"
     model: str = "cycle_gan"
     direction: str = "AtoB"
     epoch: str = "latest"
+    checkpoints_dir: str = "./checkpoints"
     norm: str = "instance"
+    serial_batches: bool = False
     no_dropout: bool = False
     max_dataset_size: int = 2 ** 31
     resize_or_crop: str = "resize_and_crop"
+    no_flip: bool = False
     init_type: str = "normal"
     init_gain: float = 0.02
+    # train options (reference options/train_options.py)
     is_train: bool = True
+    display_freq: int = 400
+    print_freq: int = 100
+    save_latest_freq: int = 5000
+    save_epoch_freq: int = 5
+    continue_train: bool = False
+    epoch_count: int = 1
     phase: str = "train"
+    niter: int = 5
+    niter_decay: int = 5
+    beta1: float = 0.5
+    lr: float = 2e-4
+    no_lsgan: bool = False
+    pool_size: int = 50
+    lr_policy: str = "lambda"
+    lr_decay_iters: int = 15
+    # CycleGAN (reference models/cycle_gan_model.py:12-22)
+    lambda_a: float = 10.0          # --lambda_A
+    lambda_b: float = 10.0          # --lambda_B
+    lambda_identity: float = 0.5
+    d_steps_per_g: int = 4          # the reference steps D 4× per G step
+                                    # (cycle_gan_model.py:151-160)
+    # test options
     results_dir: str = "./results/"
     aspect_ratio: float = 1.0
     num_test: int = 50
@@ -54,6 +89,9 @@ class Config:
     device: str = "cuda"            # 'cuda' | 'cpu'
     pth_path: str = ""              # reference generator .pth; "" = random init
 
+    def expr_dir(self) -> str:
+        return os.path.join(self.checkpoints_dir, self.name)
+
     def compute_dtype(self) -> torch.dtype:
         return {"float32": torch.float32, "bfloat16": torch.bfloat16}[self.dtype]
 
@@ -61,8 +99,9 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-# per-model default overrides (the JAX package's MODEL_DEFAULTS, serving part)
+# per-model default overrides (the JAX package's MODEL_DEFAULTS, ported part)
 MODEL_DEFAULTS = {
+    "cycle_gan": dict(no_dropout=True),
     "test": dict(no_dropout=True, dataset_mode="single", is_train=False),
 }
 

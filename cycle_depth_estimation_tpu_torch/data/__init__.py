@@ -1,10 +1,11 @@
-"""Data layer of the serving path: dataset registry and a serial loader
-(the JAX package's ``data/__init__.py``). Batches hold NCHW float32 tensors
-and lists of paths."""
+"""Data layer: dataset registry and a serial loader (the JAX package's
+``data/__init__.py`` and ``data/loader.py``). Batches hold NCHW float32
+tensors and lists of paths. The JAX package's thread and process pools are
+not ported yet."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List
+from typing import Callable, Dict, Iterator
 
 import numpy as np
 import torch
@@ -21,7 +22,7 @@ def register_dataset(name: str):
 
 
 def create_dataset(cfg, phase: str = None):
-    from . import datasets  # noqa: F401  (registers 'single')
+    from . import datasets  # noqa: F401  (registers the datasets)
 
     if cfg.dataset_mode not in _DATASET_REGISTRY:
         raise KeyError(f"dataset [{cfg.dataset_mode}] not registered; "
@@ -30,37 +31,55 @@ def create_dataset(cfg, phase: str = None):
 
 
 class DataLoader:
-    """Batches of a dataset in its own order. With batch_size > 1 the final
-    partial batch is dropped, as in the JAX package."""
+    """Batches of a dataset, read serially in the calling thread. With
+    ``shuffle`` the order is a permutation seeded by (seed, epoch), the JAX
+    package's; ``drop_last`` drops a final partial batch."""
 
-    def __init__(self, dataset, batch_size: int = 1,
-                 max_dataset_size: int = 2 ** 31):
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = True,
+                 max_dataset_size: int = 2 ** 31, seed: int = 0,
+                 drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.max_dataset_size = max_dataset_size
-
-    def _batches(self) -> List[np.ndarray]:
-        idx = np.arange(min(len(self.dataset), self.max_dataset_size))
-        out = [idx[i:i + self.batch_size]
-               for i in range(0, len(idx), self.batch_size)]
-        if self.batch_size > 1 and out and len(out[-1]) < self.batch_size:
-            out.pop()
-        return out
+        self.seed = seed
+        self.drop_last = drop_last
+        self.epoch = 0
 
     def __len__(self):
-        return len(self._batches())
+        n = min(len(self.dataset), self.max_dataset_size)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def indices(self) -> np.ndarray:
+        idx = np.arange(min(len(self.dataset), self.max_dataset_size))
+        if self.shuffle:
+            np.random.default_rng(self.seed * 7919 + self.epoch).shuffle(idx)
+        return idx
 
     def __iter__(self) -> Iterator[Dict[str, object]]:
-        for b in self._batches():
-            samples = [self.dataset[int(i)] for i in b]
+        idx = self.indices()
+        for i in range(len(self)):
+            b = idx[i * self.batch_size:(i + 1) * self.batch_size]
+            samples = [self.dataset[int(j)] for j in b]
             yield {k: (torch.stack([s[k] for s in samples])
                        if isinstance(samples[0][k], torch.Tensor)
                        else [s[k] for s in samples])
                    for k in samples[0]}
 
 
-def create_dataloader(cfg, phase: str = None):
-    """The reference ``CreateDataLoader(opt)`` for the serving path, which
-    reads in serial order."""
+def create_dataloader(cfg, phase: str = None, shuffle: bool = None):
+    """The reference ``CreateDataLoader(opt)``: shuffled unless
+    ``serial_batches`` (or ``shuffle`` says otherwise); with batch_size > 1
+    the final partial batch is dropped, as in the JAX package."""
+    if shuffle is None:
+        shuffle = not cfg.serial_batches
     return DataLoader(create_dataset(cfg, phase), batch_size=cfg.batch_size,
-                      max_dataset_size=cfg.max_dataset_size)
+                      shuffle=shuffle, max_dataset_size=cfg.max_dataset_size,
+                      seed=cfg.seed, drop_last=cfg.batch_size > 1)

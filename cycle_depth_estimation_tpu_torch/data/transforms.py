@@ -1,16 +1,19 @@
-"""Host-side image transforms of the serving path (the JAX package's
-``data/transforms.py`` in eval mode, reference data/base_dataset.py:24-102).
+"""Host-side image transforms (the JAX package's ``data/transforms.py``,
+reference data/base_dataset.py:24-102).
 
 Modes ``resize_and_crop | crop | scale_width | scale_width_and_crop |
-none``, a center crop where the mode crops, then Normalize(0.5) to [-1, 1].
-PIL decodes and resizes (bicubic, as the reference); crops are numpy
-slices. Output is HWC float32; the dataset makes it a CHW tensor. The
-training-time random crop and flip come with the training slice.
+none``, a random crop (train) or center crop (eval) where the mode crops, a
+random horizontal flip in training unless ``no_flip``, then Normalize(0.5)
+to [-1, 1]. Randomness comes from an explicit numpy ``Generator`` per
+sample, drawn in the JAX package's order, so one rng gives bit-identical
+arrays on both sides. PIL decodes and resizes (bicubic, as the reference);
+crops and flips are numpy slices. Output is HWC float32; the dataset makes
+it a CHW tensor.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 from PIL import Image
@@ -58,14 +61,29 @@ def normalize(arr: np.ndarray, mean: float = 0.5, std: float = 0.5) -> np.ndarra
     return (arr - mean) / std
 
 
+def random_crop(arr: np.ndarray, size: int, rng: np.random.Generator
+                ) -> np.ndarray:
+    h, w = arr.shape[:2]
+    top = int(rng.integers(0, h - size + 1)) if h > size else 0
+    left = int(rng.integers(0, w - size + 1)) if w > size else 0
+    return arr[top:top + size, left:left + size]
+
+
+def maybe_hflip(arr: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    if rng.random() < 0.5:
+        return arr[:, ::-1]
+    return arr
+
+
 def rgb_to_gray(arr: np.ndarray) -> np.ndarray:
     """ITU-R 601 luma, HWC → HW1."""
     return (arr[..., 0:1] * 0.299 + arr[..., 1:2] * 0.587 + arr[..., 2:3] * 0.114)
 
 
-def apply_transform(img: Image.Image, cfg, grayscale: bool = False) -> np.ndarray:
-    """The reference get_transform pipeline for one image, in eval mode:
-    center crop, no flip."""
+def apply_transform(img: Image.Image, cfg, rng: Optional[np.random.Generator],
+                    grayscale: bool = False) -> np.ndarray:
+    """The reference get_transform pipeline for one image. ``rng=None`` is
+    the eval path: center crop, no flip."""
     mode = cfg.resize_or_crop
     if mode == "resize_and_crop":
         img = resize(img, (cfg.load_size, cfg.load_size))
@@ -80,10 +98,15 @@ def apply_transform(img: Image.Image, cfg, grayscale: bool = False) -> np.ndarra
 
     arr = to_array(img)
     if mode in ("resize_and_crop", "crop", "scale_width_and_crop"):
-        h, w = arr.shape[:2]
-        top = max(0, (h - cfg.fine_size) // 2)
-        left = max(0, (w - cfg.fine_size) // 2)
-        arr = arr[top:top + cfg.fine_size, left:left + cfg.fine_size]
+        if rng is not None:
+            arr = random_crop(arr, cfg.fine_size, rng)
+        else:
+            h, w = arr.shape[:2]
+            top = max(0, (h - cfg.fine_size) // 2)
+            left = max(0, (w - cfg.fine_size) // 2)
+            arr = arr[top:top + cfg.fine_size, left:left + cfg.fine_size]
+    if cfg.is_train and not cfg.no_flip and rng is not None:
+        arr = maybe_hflip(arr, rng)
     arr = normalize(arr)
     if grayscale:
         arr = rgb_to_gray(arr)

@@ -1,5 +1,6 @@
 """Model registry: ``--model <name>`` → model class (the JAX package's
-``models/__init__.py``). The port registers the serving model ``test``."""
+``models/__init__.py``). The port registers ``test`` (serving) and
+``cycle_gan`` (training)."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ def register_model(name: str):
 
 def create_model(cfg, device=None):
     """Build the model ``cfg.model`` on ``device`` (default ``cfg.device``)."""
-    from . import test_model  # noqa: F401  (registers 'test')
+    from . import cycle_gan, test_model  # noqa: F401  (register the models)
 
     if cfg.model not in _MODEL_REGISTRY:
         raise KeyError(f"model [{cfg.model}] not registered; available: "

@@ -1,0 +1,134 @@
+"""The model lifecycle shared by trainable models (the JAX package's
+``models/base_model.py``, reference models/base_model.py:7-171).
+
+The JAX package threads an immutable ``ModelState`` through pure jitted
+steps. Here the state holds the nets (``nn.Module``s, whose parameters are
+the params), their ``torch.optim`` optimizers, the image pools and the step
+count, and a train step updates it in place: eager PyTorch has no use for
+the copy, and the parameters and Adam moments of a model are its largest
+buffers.
+
+- ``make_optimizer``: Adam with betas (beta1, 0.999) and eps 1e-8, the
+  update of the JAX package's ``optax.adam`` (and of the reference).
+- ``update_learning_rate``: the epoch LR policy (``lambda``, ``step``,
+  ``cosine``, ``plateau``), the plateau state kept on the host and not
+  checkpointed, as in the JAX package.
+- ``save_networks`` / ``load_networks``: one ``{epoch}_net_{name}.pth`` per
+  net with the reference's state-dict names, so reference tools read them,
+  plus ``{epoch}_train_state.pth`` with the optimizer states, the pools and
+  the step.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, Iterable, Tuple
+
+import torch
+from torch import nn
+
+from ..config import Config
+from ..device import resolve_device
+from ..utils.image_pool import ImagePool
+from ..utils.weights import load_pth
+from .networks import lr_schedule
+
+
+@dataclass
+class ModelState:
+    nets: Dict[str, nn.Module]
+    optimizers: Dict[str, torch.optim.Optimizer]
+    pools: Dict[str, ImagePool]
+    step: int = 0
+
+
+def make_optimizer(params: Iterable[torch.Tensor], lr: float,
+                   beta1: float) -> torch.optim.Adam:
+    """Adam as the reference builds it (betas=(beta1, 0.999), eps=1e-8;
+    e.g. models/cycle_gan_model.py:66-69). Its first step moves each
+    parameter by about sign(g)·lr."""
+    return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=1e-8)
+
+
+class BaseModel:
+    loss_names: Tuple[str, ...] = ()
+    visual_names: Tuple[str, ...] = ()
+    model_names: Tuple[str, ...] = ()
+    lr_opt_names: Tuple[str, ...] = ()
+
+    def __init__(self, cfg: Config, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device if device is None else device)
+        # host-side ReduceLROnPlateau state (torch defaults: mode 'min',
+        # factor 0.2, threshold 0.01 relative, patience 5; reference
+        # models/networks.py:32)
+        self._plateau = None
+
+    def update_learning_rate(self, state: ModelState, epoch: int,
+                             metric: float = None) -> ModelState:
+        """Set every scheduled optimizer's LR for ``epoch``. ``plateau``
+        steps on ``metric`` (the train CLI passes the epoch's eval mean)
+        and holds the LR when none is given."""
+        cfg = self.cfg
+        if cfg.lr_policy == "plateau":
+            if self._plateau is None:
+                self._plateau = {"best": float("inf"), "bad": 0, "scale": 1.0}
+            ps = self._plateau
+            if metric is not None:
+                if metric < ps["best"] * (1.0 - 0.01):
+                    ps["best"], ps["bad"] = float(metric), 0
+                else:
+                    ps["bad"] += 1
+                    if ps["bad"] > 5:
+                        ps["scale"] *= 0.2
+                        ps["bad"] = 0
+            lr = cfg.lr * ps["scale"]
+        else:
+            lr = lr_schedule(cfg.lr_policy, cfg.lr, epoch=epoch,
+                             niter=cfg.niter, niter_decay=cfg.niter_decay,
+                             lr_decay_iters=cfg.lr_decay_iters)
+        for name in self.lr_opt_names:
+            for group in state.optimizers[name].param_groups:
+                group["lr"] = lr
+        return state
+
+    # ---- checkpoints ----------------------------------------------------
+    def _paths(self, epoch) -> Dict[str, str]:
+        d = self.cfg.expr_dir()
+        paths = {name: os.path.join(d, f"{epoch}_net_{name}.pth")
+                 for name in self.model_names}
+        paths["train_state"] = os.path.join(d, f"{epoch}_train_state.pth")
+        return paths
+
+    def save_networks(self, state: ModelState, epoch) -> Dict[str, str]:
+        paths = self._paths(epoch)
+        os.makedirs(self.cfg.expr_dir(), exist_ok=True)
+        for name in self.model_names:
+            torch.save({k: v.detach().cpu()
+                        for k, v in state.nets[name].state_dict().items()},
+                       paths[name])
+        torch.save({"optimizers": {k: o.state_dict()
+                                   for k, o in state.optimizers.items()},
+                    "pools": {k: p.state_dict() for k, p in state.pools.items()},
+                    "step": state.step}, paths["train_state"])
+        return paths
+
+    def load_networks(self, state: ModelState, epoch) -> ModelState:
+        paths = self._paths(epoch)
+        for name in self.model_names:
+            state.nets[name].load_state_dict(load_pth(paths[name]))
+        rest = torch.load(paths["train_state"], map_location=self.device,
+                          weights_only=True)
+        for k, sd in rest["optimizers"].items():
+            state.optimizers[k].load_state_dict(sd)
+        for k, sd in rest["pools"].items():
+            state.pools[k].load_state_dict(
+                {**sd, "rng": sd["rng"].cpu()})
+        state.step = int(rest["step"])
+        return state
+
+    def metrics_dict(self, **kw) -> Dict[str, torch.Tensor]:
+        """Losses as detached fp32 0-d tensors on the device: reading one
+        (``float(v)``) is the caller's choice of when to sync."""
+        return {k: torch.as_tensor(v).detach().float() for k, v in kw.items()}

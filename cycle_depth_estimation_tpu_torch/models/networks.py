@@ -1,25 +1,35 @@
-"""ResnetGenerator (the CycleGAN generator) in PyTorch, NCHW.
+"""The CycleGAN networks, losses and LR schedules in PyTorch, NCHW.
 
-The counterpart of ``ResnetBlock``, ``ResnetGenerator`` and ``define_G`` in
-the JAX package's ``models/networks.py``. Modules sit in one
-``nn.Sequential`` exactly as the reference builds them
-(reference models/networks.py:145-236), so ``state_dict()`` keys are the
-reference's: ``model.1`` (conv_in), ``model.4``/``model.7`` (down),
-``model.{10+i}.conv_block.{1, 5|6}`` (block convs; 6 with dropout),
-``model.{10+n}``/``model.{13+n}`` (ConvTranspose up), ``model.{17+n}``
-(conv_out). A reference ``.pth`` loads with ``load_state_dict``.
+The counterparts of ``ResnetBlock``, ``ResnetGenerator``, ``define_G``,
+``NLayerDiscriminator``, ``PixelDiscriminator``, ``define_D``, ``gan_loss``,
+``l1_loss``, ``mse_loss`` and ``lr_schedule`` in the JAX package's
+``models/networks.py``. Modules sit in one ``nn.Sequential`` exactly as the
+reference builds them (reference models/networks.py:145-236, 330-386), so
+``state_dict()`` keys are the reference's and a reference ``.pth`` loads
+with ``load_state_dict``:
+
+- ResnetGenerator: ``model.1`` (conv_in), ``model.4``/``model.7`` (down),
+  ``model.{10+i}.conv_block.{1, 5|6}`` (block convs; 6 with dropout),
+  ``model.{10+n}``/``model.{13+n}`` (ConvTranspose up), ``model.{17+n}``
+  (conv_out);
+- NLayerDiscriminator: ``model.0`` (conv0), then ``model.{2+3(n-1)}`` for
+  conv1 … conv{n_layers}, then conv_out three further on (``model.11`` at
+  3 layers);
+- PixelDiscriminator: ``net.0``, ``net.2``, ``net.5``.
 """
 
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.init import init_weights
-from ..ops.layers import Norm
+from ..ops.layers import InstanceNorm, Norm, norm_uses_bias
 
 
 class ResnetBlock(nn.Module):
@@ -100,3 +110,141 @@ def define_G(input_nc: int, output_nc: int, ngf: int, net_g: str,
     net = ResnetGenerator(input_nc, output_nc, ngf, _RESNET_BLOCKS[net_g],
                           norm=norm, use_dropout=use_dropout)
     return init_weights(net, init_type, init_gain, generator)
+
+
+class NLayerDiscriminator(nn.Module):
+    """70×70 PatchGAN: a stride-2 4×4 conv and LeakyReLU(0.2), ``n_layers - 1``
+    stride-2 conv→norm→LeakyReLU, one stride-1 conv→norm→LeakyReLU, a
+    one-channel stride-1 4×4 conv; all padding 1."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 3,
+                 norm: str = "instance", use_sigmoid: bool = False):
+        super().__init__()
+        self.n_layers = n_layers
+        use_bias = norm_uses_bias(norm)
+        layers = [nn.Conv2d(input_nc, ndf, 4, 2, 1), nn.LeakyReLU(0.2, True)]
+        mult = 1
+        for n in range(1, n_layers + 1):
+            prev, mult = mult, min(2 ** n, 8)
+            stride = 2 if n < n_layers else 1
+            layers += [nn.Conv2d(ndf * prev, ndf * mult, 4, stride, 1,
+                                 bias=use_bias),
+                       Norm(norm), nn.LeakyReLU(0.2, True)]
+        layers.append(nn.Conv2d(ndf * mult, 1, 4, 1, 1))
+        if use_sigmoid:
+            layers.append(nn.Sigmoid())
+        self.model = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x)
+
+    def site_convs(self) -> Dict[str, nn.Module]:
+        """Every conv by the JAX package's param name (``conv0`` …
+        ``conv{n_layers}``, ``conv_out``)."""
+        convs = [m for m in self.model if isinstance(m, nn.Conv2d)]
+        names = [f"conv{i}" for i in range(self.n_layers + 1)] + ["conv_out"]
+        return OrderedDict(zip(names, convs))
+
+
+class PixelDiscriminator(nn.Module):
+    """1×1 per-pixel discriminator (PixelGAN)."""
+
+    def __init__(self, input_nc: int = 3, ndf: int = 64,
+                 norm: str = "instance", use_sigmoid: bool = False):
+        super().__init__()
+        use_bias = norm_uses_bias(norm)
+        layers = [nn.Conv2d(input_nc, ndf, 1), nn.LeakyReLU(0.2, True),
+                  nn.Conv2d(ndf, ndf * 2, 1, bias=use_bias), Norm(norm),
+                  nn.LeakyReLU(0.2, True),
+                  nn.Conv2d(ndf * 2, 1, 1, bias=use_bias)]
+        if use_sigmoid:
+            layers.append(nn.Sigmoid())
+        self.net = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x)
+
+    def site_convs(self) -> Dict[str, nn.Module]:
+        convs = [m for m in self.net if isinstance(m, nn.Conv2d)]
+        return OrderedDict(zip(("conv0", "conv1", "conv2"), convs))
+
+
+def define_D(input_nc: int, ndf: int, net_d: str, n_layers_d: int = 3,
+             norm: str = "instance", use_sigmoid: bool = False,
+             init_type: str = "normal", init_gain: float = 0.02,
+             generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Build and initialise a discriminator from the reference's CLI string
+    (``basic`` = 3-layer PatchGAN, ``n_layers``, ``pixel``)."""
+    if net_d == "basic":
+        net = NLayerDiscriminator(input_nc, ndf, 3, norm, use_sigmoid)
+    elif net_d == "n_layers":
+        net = NLayerDiscriminator(input_nc, ndf, n_layers_d, norm, use_sigmoid)
+    elif net_d == "pixel":
+        net = PixelDiscriminator(input_nc, ndf, norm, use_sigmoid)
+    else:
+        raise NotImplementedError(
+            f"Discriminator model name [{net_d}] is not recognized")
+    return init_weights(net, init_type, init_gain, generator)
+
+
+def biases_before_norm(net: nn.Module) -> set:
+    """State-dict names of the conv biases that an InstanceNorm follows.
+    The norm removes any per-channel constant, so their gradient is zero up
+    to rounding, and Adam's first step moves each by up to ±lr in a
+    direction that rounding picks: two correct implementations differ there
+    by up to 2·lr per step."""
+    names = set()
+    for prefix, seq in net.named_modules():
+        if not isinstance(seq, nn.Sequential):
+            continue
+        mods = list(seq)
+        for i, (m, nxt) in enumerate(zip(mods, mods[1:])):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and \
+                    m.bias is not None and isinstance(nxt, InstanceNorm):
+                names.add(f"{prefix}.{i}.bias")
+    return names
+
+
+# ---------------------------------------------------------------------------
+# losses: fp32 means, as the JAX package takes them
+# ---------------------------------------------------------------------------
+
+
+def gan_loss(pred: torch.Tensor, target_is_real: bool,
+             mode: str = "lsgan") -> torch.Tensor:
+    """``lsgan``: MSE of the raw D output against 1/0. ``vanilla``: BCE on
+    logits (build D with use_sigmoid=False)."""
+    pred = pred.float()
+    target = torch.full_like(pred, 1.0 if target_is_real else 0.0)
+    if mode == "lsgan":
+        return F.mse_loss(pred, target)
+    if mode == "vanilla":
+        return F.binary_cross_entropy_with_logits(pred, target)
+    raise NotImplementedError(f"gan mode [{mode}] not implemented")
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return F.l1_loss(a.float(), b.float())
+
+
+def mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return F.mse_loss(a.float(), b.float())
+
+
+def lr_schedule(policy: str, base_lr: float, *, epoch: int, niter: int = 5,
+                niter_decay: int = 5, lr_decay_iters: int = 15) -> float:
+    """The LR for an epoch under the reference's policies. ``lambda`` is the
+    reference's hard-coded lr·(1 − max(0, epoch − 10)/30), which ignores
+    niter and niter_decay (reference models/networks.py:26-28); ``plateau``
+    keeps base_lr here: its state lives in ``BaseModel.update_learning_rate``.
+    """
+    if policy == "lambda":
+        return base_lr * (1.0 - max(0, epoch - 10) / 30.0)
+    if policy == "step":
+        return base_lr * (0.1 ** (epoch // lr_decay_iters))
+    if policy == "cosine":
+        return base_lr * 0.5 * (1.0 + math.cos(math.pi * epoch / max(1, niter)))
+    if policy == "plateau":
+        return base_lr
+    raise NotImplementedError(
+        f"learning rate policy [{policy}] is not implemented")

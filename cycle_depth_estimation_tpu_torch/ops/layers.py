@@ -40,3 +40,9 @@ def Norm(kind: str) -> nn.Module:
     if kind == "none":
         return nn.Identity()
     raise NotImplementedError(f"normalization layer [{kind}] is not found")
+
+
+def norm_uses_bias(kind: str) -> bool:
+    """The reference's conv-bias rule: a conv before a norm has a bias
+    unless the norm is BatchNorm (reference models/networks.py:152-155)."""
+    return kind != "batch"

@@ -23,9 +23,10 @@ def main(argv=None) -> str:
     from .utils.visualizer import save_images
 
     cfg = parse_args(argv, is_train=False)
-    # reference TestOptions: batch 1, loadSize=fineSize (no flip, serial
-    # order: the port's loader does nothing else)
-    cfg = cfg.replace(load_size=cfg.fine_size, batch_size=1)
+    # reference TestOptions: batch 1, loadSize=fineSize, no flip, serial
+    # order
+    cfg = cfg.replace(load_size=cfg.fine_size, batch_size=1, no_flip=True,
+                      serial_batches=True)
     print(print_options(cfg))
 
     model = create_model(cfg)
@@ -33,7 +34,7 @@ def main(argv=None) -> str:
         model.load_reference_generator(cfg.pth_path)
     else:
         print("warning: no --pth_path given — running with random init")
-    loader = create_dataloader(cfg, phase=cfg.phase)
+    loader = create_dataloader(cfg, phase=cfg.phase, shuffle=False)
 
     web_dir = os.path.join(cfg.results_dir, cfg.name, f"{cfg.phase}_{cfg.epoch}")
     webpage = HTML(web_dir, f"Experiment = {cfg.name}, Phase = {cfg.phase}, "

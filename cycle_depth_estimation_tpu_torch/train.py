@@ -1,0 +1,113 @@
+"""Training CLI of the port (the root ``train.py`` of the JAX package,
+reference train.py:10-81)::
+
+    python -m cycle_depth_estimation_tpu_torch.train --model cycle_gan \\
+        --dataroot <dir with trainA/ trainB/ [testA/ testB/]> \\
+        [--niter N --niter_decay M --batch_size B] [--continue_train] \\
+        [--device cuda|cpu]
+
+Epochs ``epoch_count … niter + niter_decay``: a train step per batch, with
+losses printed and logged every ``print_freq`` images, visuals saved every
+``display_freq`` and the ``latest`` checkpoint every ``save_latest_freq``;
+after each epoch an eval over at most 50 batches of ``testA/testB`` where
+those exist (their mean loss is the ``plateau`` LR policy's metric), the
+checkpoints every ``save_epoch_freq`` epochs, the HTML page, and the LR
+step. ``--continue_train`` resumes from the ``--epoch`` checkpoint.
+Checkpoints, logs and the page go to ``<checkpoints_dir>/<name>/``.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+
+def main(argv=None):
+    import numpy as np
+
+    from .config import parse_args, print_options
+    from .data import create_dataloader
+    from .device import resolve_device
+    from .models import create_model
+    from .utils.visualizer import Visualizer
+
+    cfg = parse_args(argv, is_train=True)
+    resolve_device(cfg.device)
+    message = print_options(cfg)
+    print(message)
+    os.makedirs(cfg.expr_dir(), exist_ok=True)
+    with open(os.path.join(cfg.expr_dir(), "opt.txt"), "wt") as fh:
+        fh.write(message + "\n")
+
+    loader_train = create_dataloader(cfg, phase="train")
+    try:
+        loader_test = create_dataloader(cfg.replace(is_train=False),
+                                        phase="test", shuffle=False)
+    except (FileNotFoundError, KeyError):
+        loader_test = None
+    print(f"#training batches = {len(loader_train)}")
+
+    model = create_model(cfg)
+    state = model.init_state()
+    if cfg.continue_train:
+        state = model.load_networks(state, cfg.epoch)
+    visualizer = Visualizer(cfg)
+
+    total_steps = 0
+    eval_metric = None  # the plateau LR policy's metric
+    for epoch in range(cfg.epoch_count, cfg.niter + cfg.niter_decay + 1):
+        epoch_start = time.time()
+        loader_train.set_epoch(epoch)
+        iter_start = time.time()
+        for batch in loader_train:
+            t_data = time.time() - iter_start
+            state, losses = model.train_step(state, batch)
+            total_steps += cfg.batch_size
+
+            if total_steps % cfg.print_freq < cfg.batch_size:
+                losses_host = {k: float(v) for k, v in losses.items()}
+                t_step = time.time() - iter_start - t_data
+                visualizer.print_current_losses(epoch, total_steps, losses_host,
+                                                t_step, t_data)
+                visualizer.log_scalars(epoch, total_steps, losses_host)
+
+            if total_steps % cfg.display_freq < cfg.batch_size:
+                _, visuals = model.eval_step(state, batch)
+                visualizer.display_current_results(visuals, epoch)
+
+            if total_steps % cfg.save_latest_freq < cfg.batch_size:
+                print(f"saving the latest model (epoch {epoch}, "
+                      f"total_steps {total_steps})")
+                model.save_networks(state, "latest")
+            iter_start = time.time()
+
+        if loader_test is not None:
+            eval_losses = []
+            for i, batch in enumerate(loader_test):
+                if i >= 50:
+                    break
+                m, _ = model.eval_step(state, batch)
+                eval_losses.append({k: float(v) for k, v in m.items()})
+            if eval_losses:
+                avg = {k: float(np.mean([e[k] for e in eval_losses]))
+                       for k in eval_losses[0]}
+                print(f"[eval epoch {epoch}] "
+                      + " ".join(f"{k}: {v:.3f}" for k, v in avg.items()))
+                visualizer.log_scalars(epoch, total_steps,
+                                       {f"eval_{k}": v for k, v in avg.items()})
+                eval_metric = float(np.mean(list(avg.values())))
+
+        if epoch % cfg.save_epoch_freq == 0:
+            print(f"saving the model at the end of epoch {epoch}")
+            model.save_networks(state, "latest")
+            model.save_networks(state, epoch)
+
+        print(f"End of epoch {epoch} / {cfg.niter + cfg.niter_decay} \t "
+              f"Time Taken: {time.time() - epoch_start:.0f} sec")
+        visualizer.save_html(epoch)
+        state = model.update_learning_rate(state, epoch, metric=eval_metric)
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,62 @@
+"""ImagePool: the discriminator's replay buffer of generated images (the JAX
+package's ``utils/image_pool.py``, reference util/image_pool.py:5-32).
+
+Per image of a query, in batch order:
+
+- while the pool is under-full: store the image, return the image;
+- once full: with p > 0.5 return a random stored image and store the new
+  one in its place; otherwise return the image.
+
+``pool_size`` 0 is the identity. The buffer is one (pool_size, C, H, W)
+tensor on the images' device, written in place; the draws come from the
+pool's own CPU ``torch.Generator``, so the choices need no device sync and
+are the same on every device for one seed. The JAX pool draws from
+``jax.random`` keys instead, so the two agree draw for draw only while the
+pool is under-full, where nothing is drawn.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+
+
+class ImagePool:
+    def __init__(self, pool_size: int, image_shape: Sequence[int],
+                 device=None, generator: Optional[torch.Generator] = None):
+        self.pool_size = pool_size
+        self.images = torch.zeros((max(pool_size, 1), *image_shape),
+                                  device=device)
+        self.count = 0
+        self.generator = (torch.Generator().manual_seed(0)
+                          if generator is None else generator)
+
+    def query(self, batch: torch.Tensor) -> torch.Tensor:
+        """Return the batch the discriminator sees (``batch`` is not
+        modified; the pool keeps copies)."""
+        if self.pool_size == 0:
+            return batch
+        batch = batch.detach()
+        out = batch.clone()
+        for i in range(batch.shape[0]):
+            if self.count < self.pool_size:
+                self.images[self.count].copy_(batch[i])
+                self.count += 1
+                continue
+            p = float(torch.rand((), generator=self.generator))
+            rid = int(torch.randint(0, self.pool_size, (),
+                                    generator=self.generator))
+            if p > 0.5:
+                out[i].copy_(self.images[rid])
+                self.images[rid].copy_(batch[i])
+        return out
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"images": self.images, "count": self.count,
+                "rng": self.generator.get_state()}
+
+    def load_state_dict(self, sd: Dict[str, object]) -> None:
+        self.images.copy_(sd["images"])
+        self.count = int(sd["count"])
+        self.generator.set_state(sd["rng"])

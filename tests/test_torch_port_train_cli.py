@@ -1,0 +1,169 @@
+"""The port's training data path and train CLI against the JAX package, on
+the CPU: the unaligned dataset's items and the loader's order (bit-identical
+to the JAX ones on the same PNGs, seed and epoch), the train CLI's outputs
+and resume, its default device, and the flags it leaves out."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from cycle_depth_estimation_tpu.config import Config as JaxConfig
+from cycle_depth_estimation_tpu.data.datasets import (
+    UnalignedDataset as JaxUnalignedDataset,
+)
+from cycle_depth_estimation_tpu.data.loader import DataLoader as JaxDataLoader
+from cycle_depth_estimation_tpu_torch.config import Config, parse_args
+from cycle_depth_estimation_tpu_torch.data import DataLoader, create_dataloader
+from cycle_depth_estimation_tpu_torch.data.datasets import UnalignedDataset
+from cycle_depth_estimation_tpu_torch.train import main as train_main
+
+
+def _write_pngs(folder, n, size, seed):
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        Image.fromarray(rng.randint(0, 256, (size[1], size[0], 3), np.uint8)
+                        ).save(os.path.join(folder, f"img_{i:03d}.png"))
+
+
+@pytest.fixture(scope="module")
+def root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("unaligned")
+    for i, (phase, n) in enumerate((("trainA", 5), ("trainB", 3),
+                                    ("testA", 2), ("testB", 2))):
+        _write_pngs(root / phase, n, (44, 38), seed=i)
+    return root
+
+
+_CASES = {
+    "resize_and_crop": dict(resize_or_crop="resize_and_crop", load_size=36,
+                            fine_size=32),
+    "crop_serial": dict(resize_or_crop="crop", fine_size=24,
+                        serial_batches=True),
+    "scale_width_and_crop_no_flip": dict(resize_or_crop="scale_width_and_crop",
+                                         load_size=40, fine_size=28,
+                                         no_flip=True),
+    "eval": dict(resize_or_crop="resize_and_crop", load_size=36,
+                 fine_size=32, is_train=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_unaligned_dataset_is_bit_identical_to_jax(root, case):
+    kw = dict(dataroot=str(root), seed=3, **_CASES[case])
+    jds = JaxUnalignedDataset(JaxConfig(**kw), phase="train")
+    pds = UnalignedDataset(Config(**kw), phase="train")
+    assert len(pds) == len(jds) == 5
+    for epoch in (1, 2):
+        jds.set_epoch(epoch)
+        pds.set_epoch(epoch)
+        for i in range(len(pds)):
+            want, got = jds[i], pds[i]
+            assert got["A_paths"] == want["A_paths"]
+            assert got["B_paths"] == want["B_paths"]
+            for k in ("A", "B", "img_source", "img_target"):
+                assert got[k].dtype == torch.float32
+                np.testing.assert_array_equal(got[k].numpy().transpose(1, 2, 0),
+                                              want[k], err_msg=f"{k} {i}")
+
+
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_loader_order_is_bit_identical_to_jax(root, drop_last):
+    kw = dict(dataroot=str(root), seed=5, load_size=36, fine_size=32)
+    jl = JaxDataLoader(JaxUnalignedDataset(JaxConfig(**kw), "train"),
+                       batch_size=2, shuffle=True, num_workers=1, seed=5,
+                       drop_last=drop_last)
+    pl = DataLoader(UnalignedDataset(Config(**kw), "train"), batch_size=2,
+                    shuffle=True, seed=5, drop_last=drop_last)
+    orders = set()
+    for epoch in (1, 2, 3):
+        jl.set_epoch(epoch)
+        pl.set_epoch(epoch)
+        jb, pb = list(jl), list(pl)
+        assert len(pl) == len(jl) == len(pb) == len(jb) == (2 if drop_last
+                                                           else 3)
+        for want, got in zip(jb, pb):
+            assert got["A_paths"] == want["A_paths"]
+            assert got["B_paths"] == want["B_paths"]
+            np.testing.assert_array_equal(got["A"].numpy().transpose(0, 2, 3, 1),
+                                          want["A"])
+            np.testing.assert_array_equal(got["B"].numpy().transpose(0, 2, 3, 1),
+                                          want["B"])
+        orders.add(tuple(p for b in pb for p in b["A_paths"]))
+    assert len(orders) > 1  # shuffled anew each epoch
+
+
+def test_create_dataloader_shuffles_unless_serial(root):
+    cfg = Config(dataroot=str(root), load_size=36, fine_size=32, batch_size=2)
+    assert create_dataloader(cfg).shuffle
+    serial = create_dataloader(cfg.replace(serial_batches=True))
+    assert not serial.shuffle and serial.drop_last
+    assert list(serial.indices()) == list(range(5))
+
+
+_TINY = ["--ngf", "4", "--ndf", "4", "--netG", "resnet_3blocks",
+         "--load_size", "36", "--fine_size", "32", "--batch_size", "2",
+         "--niter", "1", "--niter_decay", "0", "--save_epoch_freq", "1",
+         "--print_freq", "2", "--display_freq", "4"]
+
+
+def test_train_cli_writes_checkpoints_logs_page_and_resumes(root, tmp_path):
+    common = ["--dataroot", str(root), "--checkpoints_dir", str(tmp_path),
+              "--name", "tiny", "--device", "cpu", *_TINY]
+    state = train_main(common)
+    expr = tmp_path / "tiny"
+    assert state.step == 2  # 5 A images, batch 2, last partial batch dropped
+    for epoch in ("1", "latest"):
+        for net in ("G_A", "G_B", "D_A", "D_B"):
+            assert (expr / f"{epoch}_net_{net}.pth").is_file()
+        assert (expr / f"{epoch}_train_state.pth").is_file()
+    log = (expr / "loss_log.txt").read_text()
+    assert "(epoch: 1, iters: 2," in log and "cycle_A:" in log
+    scalars = [json.loads(line) for line in
+               (expr / "scalars.jsonl").read_text().splitlines()]
+    assert [r["iters"] for r in scalars if "D_A" in r] == [2, 4]
+    assert any("eval_cycle_A" in r for r in scalars)  # testA/testB eval
+    html = (expr / "web" / "index.html").read_text()
+    assert "epoch001_fake_B.png" in html and "epoch [1]" in html
+    assert (expr / "opt.txt").is_file()
+
+    saved = torch.load(expr / "latest_net_G_A.pth")
+    resumed = train_main(common + ["--niter", "2", "--epoch_count", "2",
+                                   "--continue_train"])
+    assert resumed.step == 4
+    assert (expr / "2_net_D_B.pth").is_file()
+    after = resumed.nets["G_A"].state_dict()
+    assert all(not torch.equal(after[k], v) for k, v in saved.items()
+               if k.endswith("weight"))
+
+
+def test_train_cli_defaults_to_cuda_and_never_falls_back(root, tmp_path,
+                                                         monkeypatch):
+    assert Config().device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--dataroot", str(root), "--checkpoints_dir",
+                    str(tmp_path), *_TINY])
+    assert not (tmp_path / "experiment_name").exists()
+
+
+@pytest.mark.parametrize("flag", ["--remat", "--parallel", "--int8",
+                                  "--device_aug", "--mesh_shape", "--zero",
+                                  "--kitti_gt_dir", "--adam_eps"])
+def test_flags_of_later_slices_are_rejected(flag):
+    with pytest.raises(SystemExit):
+        parse_args([flag, "1"] if flag not in ("--remat", "--int8",
+                                               "--device_aug") else [flag])
+
+
+def test_reference_flag_aliases():
+    cfg = parse_args(["--lambda_A", "3", "--lambda_B", "4", "--netD", "pixel",
+                      "--n_layers_D", "5", "--niter", "2"])
+    assert (cfg.lambda_a, cfg.lambda_b, cfg.net_d, cfg.n_layers_d,
+            cfg.niter) == (3.0, 4.0, "pixel", 5, 2)
+    assert cfg.no_dropout  # cycle_gan's model default
+    assert parse_args(["--model", "cycle_gan", "--no_dropout"]).no_dropout
