@@ -31,6 +31,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``fused_int8_apply``; 23 epilogue launches per forward, the kernel held
    against the plain version at each site on the path's own inputs, and
    the output against the plain path and against fp32.
+6b. The same in the all-int8 up modes ``int8_dilated`` and ``int8_phases``
+   (the ConvTranspose generator) and ``resize_conv_int8`` (a seeded
+   ``ResnetGenerator(up_mode='resize_conv')``, held against its own fp32
+   forward): 23 epilogue launches per forward each, img/s each.
 7. Where one bf16 and one fused int8 forward spend device time
    (``torch.profiler``), and the device's idle share.
 8. CycleGAN training at full width (two 9-block generators, ngf 64, two
@@ -42,12 +46,33 @@ Phases, in order; any failure raises and the script exits nonzero:
    InstanceNorm kernels' time per step beside their bounds).
 9. The train CLI (``python -m cycle_depth_estimation_tpu_torch.train``, in
    a process of its own) on 4 PNGs a folder at 64², full widths:
-   checkpoints, logs, HTML page; then a resume through its ``main``.
+   checkpoints, logs, HTML page; then a resume through its ``main`` here.
+10. The UNet-256 with ``--norm instance`` (ngf 64, batch 8, 256²), forward
+   and backward: both InstanceNorm kernels at its 13 planes (128² down to
+   2²) held against their plain versions on the path's own inputs, and
+   the 1² plane (variance 0) on its own.
+11. pix2pix training at full width (the JAX defaults: unet_256 ngf 64 with
+   BatchNorm and dropout, a 3-layer PatchGAN ndf 64 on the 6-channel pair,
+   vanilla GAN, λ_L1 100, no pool), batch 8, 256², fp32, seeded: finite
+   losses, BatchNorm statistics moved, G_L1 falling over steps on a fixed
+   batch, steps/s, img/s, peak memory and one profiled step.
+12. The pix2pix train CLI in a process of its own (``--num_threads 2``) on
+   4 aligned PNGs (``unet_128`` at 128²; phase 11 runs the full-width
+   step), started before phase 9 and run beside it; then its resume with
+   ``--worker_procs 2 --device_aug`` (crop, flip and normalize on the
+   card), again in a process of its own, beside phase 10; after phase 11,
+   the test CLI with ``--model pix2pix`` on the checkpoint.
+
+Every CLI process runs in a session of its own: it fails the phase if a
+process of that session (a loader worker, the forkserver, Python's resource
+tracker) still runs 10 s after the CLI ended. The script fails, too, if a
+process it started still runs when it is about to print its result.
 
 Launch counts are zeroed just before phase 3 and read after phase 7 (the
-serving path), and again before phase 8 and after phase 9 (the training
-path). The last three lines are a JSON object with every kernel's numbers,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+serving path), before phase 8 and after phase 9 (the training path), and
+before phase 10 and after phase 12 (the pix2pix path). The last three lines
+are a JSON object with every kernel's numbers, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --sweep-epilogue [TABLE]
 
@@ -56,6 +81,12 @@ kernel (channel tile, cluster size, threads, staged rows) at every site, each
 checked against the plain version first. That is how ``plan_epilogue``'s
 rules were chosen. It prints the best plans of each site, appends every
 timing to the file TABLE if one is named, and prints no result line.
+
+    python3 chip_smoke.py --bench-loaders
+
+times the pix2pix train CLI's loaders at full size (``bench_loaders``): how
+long a step waits for its batch with the serial loader, threads, processes
+and ``--device_aug``. It prints no result line either.
 """
 
 from __future__ import annotations
@@ -65,6 +96,7 @@ import copy
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -80,6 +112,7 @@ IN_BWD_FLOPS_PER_ELEM = 10    # x̂, two sums, then x̂ again and dx
 EP_FLOPS_PER_ELEM = 9         # IN + relu/residual + scale, round, clip
 BATCH, SIZE, NGF, N_BLOCKS = 8, 256, 64, 9
 NDF = 64
+CLI_SIZE = 128                # the CLIs' pix2pix runs: unet_128 at 128²
 
 # InstanceNorm planes of one generator forward: (N, C, H, W) → calls
 IN_SHAPES = {(BATCH, NGF, SIZE, SIZE): 2,
@@ -113,6 +146,18 @@ EP_SITES = {
     "up0_float": (_S2, "bf16", False, dict(relu=True), 1),
     "up1_pad3": (_S1, "bf16", True, dict(relu=True, pad=3), 1),
 }
+# the three sites that the all-int8 up modes add: the last block, up0 and up1
+# requantize from int32 (the other 20 are bf16 mode's)
+EP_UP_SITES = {
+    "last_block_q": (_S4, "int32", True, dict(residual=True), 1),
+    "up0_q": (_S2, "int32", True, dict(relu=True), 1),
+    "up1_q_pad3": (_S1, "int32", True, dict(relu=True, pad=3), 1),
+}
+# calls per forward of each site in the all-int8 up modes
+EP_UP_CALLS = {**{k: v[-1] for k, v in EP_SITES.items()
+                  if k in ("conv_in", "down0", "down1", "block_conv1",
+                           "block_conv2")},
+               **{k: v[-1] for k, v in EP_UP_SITES.items()}}
 # ms per call of the epilogue kernel before its redesign (one block per
 # (sample, 8 channels), scalar access, two reads of y; PERF.md section 6,
 # NVIDIA H100 80GB HBM3, 700.00 W). The same kernel is still the generic
@@ -141,10 +186,22 @@ EP_RAGGED = {
 # fused int8 forward: both 23 at 9 blocks
 PER_FORWARD = sum(IN_SHAPES.values())
 assert PER_FORWARD == sum(site[-1] for site in EP_SITES.values())
+assert PER_FORWARD == sum(EP_UP_CALLS.values())
+UP_MODES = ("int8_dilated", "int8_phases", "resize_conv_int8")
+# Cosine of the fused int8 output with its fp32 generator: 0.99, except in
+# 'resize_conv_int8', whose arithmetic reaches less on the seeded weights:
+# on this generator, calibration and first image the JAX function gives
+# 0.98784 and the port's plain path 0.98797 (``python
+# tests/test_torch_port_int8_up_modes.py``, on the CPU).
+FP32_COSINE_FLOOR = {"resize_conv_int8": 0.985}
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg):
-    print(msg, flush=True)
+    """``msg`` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def ms_per_call(fn, iters=20, warmup=3):
@@ -228,6 +285,78 @@ def counted(fn, expect, what):
     got = fn.launches - before
     if got != expect:
         raise AssertionError(f"{what}: {got} launches, expected {expect}")
+
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAIN_CLI = "cycle_depth_estimation_tpu_torch.train"
+
+
+def running(field, value):
+    """Running processes (zombies left out) whose ``/proc/<pid>/stat``
+    ``field`` ("ppid" or "session") is ``value``, as "pid command" lines."""
+    index = {"ppid": 1, "session": 3}[field]
+    found = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:  # ended meanwhile
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if fields[0] != "Z" and int(fields[index]) == value:
+            found.append(f"{pid} {cmd[:160]}")
+    return found
+
+
+def start_cli(module, args):
+    """``python -m <module> <args>`` in a session of its own (so every
+    process it starts can be found), its output to a temporary file."""
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT,
+                            stdout=out, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    return {"proc": proc, "out": out, "t": time.perf_counter()}
+
+
+def end_cli(run, what, timeout=600, grace=10.0):
+    """Wait for ``start_cli``'s process; return its output and seconds.
+    Raises if it failed, outlasted ``timeout``, or left a process of its
+    session running ``grace`` seconds after it ended (those are killed)."""
+    proc = run["proc"]
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    seconds = time.perf_counter() - run["t"]
+    deadline = time.perf_counter() + grace
+    while running("session", proc.pid) and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    left = running("session", proc.pid)
+    if left:
+        os.killpg(proc.pid, signal.SIGKILL)
+    run["out"].seek(0)
+    text = run["out"].read()
+    run["out"].close()
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{text[-6000:]}")
+    if left:
+        raise AssertionError(f"{what} left processes running {grace} s after "
+                             f"it ended: {left}")
+    return text, seconds
+
+
+def check_no_children():
+    """Raise if a process this script started still runs (it is killed)."""
+    left = running("ppid", os.getpid())
+    for line in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(int(line.split()[0]), signal.SIGKILL)
+    if left:
+        raise AssertionError(f"processes left running: {left}")
 
 
 def phase_build():
@@ -436,10 +565,12 @@ def phase_epilogue(gen):
     from cycle_depth_estimation_tpu_torch.ops.kernels import int8_epilogue as ep
 
     totals = dict(ms=0.0, plain_ms=0.0, generic_ms=0.0, bytes=0, flops=0)
+    up_totals = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)
     max_err = 0.0
     generic = ep.plan_epilogue((1, 1, 1, 1), 4)  # C = 1: the generic kernel
     ep.fused_in_epilogue.variant_launches.clear()
-    for name, (shape, in_dtype, quantize, kw, calls) in EP_SITES.items():
+    for name, (shape, in_dtype, quantize, kw, calls) in {
+            **EP_SITES, **EP_UP_SITES}.items():
         desc = _describe(kw, quantize)
         y, res, kw = _site_inputs(gen, shape, in_dtype, kw)
         inv = 25.0 if quantize else None
@@ -473,6 +604,12 @@ def phase_epilogue(gen):
         if t_k < t_b:
             raise AssertionError(f"epilogue {name}: {t_k} ms is under its "
                                  f"bound of {t_b} ms: wrong count or timer")
+        earlier = (f" (earlier run {EP_EARLIER_MS[name]:.3f} ms)"
+                   if name in EP_EARLIER_MS else "")
+        per = (f"x{calls} per bf16-mode forward" if name in EP_SITES else "")
+        if name in EP_UP_CALLS:
+            per += (", " if per else "") + \
+                f"x{EP_UP_CALLS[name]} per int8-up-mode forward"
         log(f"phase 2: int8_epilogue {name} {tuple(shape)} {in_dtype} {desc}: "
             f"{plan.variant} ct {plan.channel_tile} cluster {plan.cluster} "
             f"threads {plan.threads} staged {plan.staged_rows}/{plan.rows} "
@@ -480,14 +617,19 @@ def phase_epilogue(gen):
             f"{plan.blocks(shape[0], shape[3])} blocks, {fits} clusters "
             f"resident; max_abs_err {err:.3g} int8 mismatch share {frac:.2e} "
             f"kernel {t_k:.4f} ms bound {t_b:.4f} ms ({t_k / t_b:.2f}x) "
-            f"generic kernel {t_g:.4f} ms (earlier run "
-            f"{EP_EARLIER_MS[name]:.3f} ms) plain {t_p:.4f} ms; eager "
-            f"back-to-back {t_e:.4f} ms (x{calls} per forward)")
-        totals["ms"] += calls * t_k
-        totals["plain_ms"] += calls * t_p
-        totals["generic_ms"] += calls * t_g
-        totals["bytes"] += calls * nbytes
-        totals["flops"] += calls * flops
+            f"generic kernel {t_g:.4f} ms{earlier} plain {t_p:.4f} ms; "
+            f"eager back-to-back {t_e:.4f} ms ({per})")
+        if name in EP_SITES:
+            totals["ms"] += calls * t_k
+            totals["plain_ms"] += calls * t_p
+            totals["generic_ms"] += calls * t_g
+            totals["bytes"] += calls * nbytes
+            totals["flops"] += calls * flops
+        n_up = EP_UP_CALLS.get(name, 0)
+        up_totals["ms"] += n_up * t_k
+        up_totals["plain_ms"] += n_up * t_p
+        up_totals["bytes"] += n_up * nbytes
+        up_totals["flops"] += n_up * flops
         del y, res, ins, out_k, out_p
 
     for name, (shape, in_dtype, quantize, kw) in EP_RAGGED.items():
@@ -509,9 +651,14 @@ def phase_epilogue(gen):
     if not by_variant.get("generic"):
         raise AssertionError("no ragged case took the generic kernel")
     sum_earlier = sum(EP_EARLIER_MS[k] * v[-1] for k, v in EP_SITES.items())
+    up_bound, _ = bound(up_totals["bytes"], up_totals["flops"])
     log(f"phase 2 ok: int8_epilogue per int8 forward {totals['ms']:.4f} ms; "
         f"generic (earlier) kernel now {totals['generic_ms']:.4f} ms, earlier "
-        f"run {sum_earlier:.3f} ms; launches by variant {by_variant}")
+        f"run {sum_earlier:.3f} ms; per int8-up-mode forward "
+        f"{up_totals['ms']:.4f} ms (plain {up_totals['plain_ms']:.4f} ms, "
+        f"bound {up_bound:.4f} ms); launches by variant {by_variant}")
+    totals["up_mode_ms"] = up_totals["ms"]
+    totals["up_mode_bound_ms"] = up_bound
     return totals, max_err
 
 
@@ -524,7 +671,8 @@ def sweep_epilogue(gen, table=None):
 
     from cycle_depth_estimation_tpu_torch.ops.kernels import int8_epilogue as ep
 
-    for name, (shape, in_dtype, quantize, kw, calls) in EP_SITES.items():
+    for name, (shape, in_dtype, quantize, kw, calls) in {
+            **EP_SITES, **EP_UP_SITES}.items():
         y, res, kw = _site_inputs(gen, shape, in_dtype, kw)
         inv = 25.0 if quantize else None
         pad = kw.get("pad", 0) if quantize else 0
@@ -675,7 +823,10 @@ def phase_cli():
     log(f"phase 5 ok: test CLI wrote index.html and {len(images)} images")
 
 
-def phase_fused_int8(g, x, y_fp32):
+def phase_fused_int8(g, x, y_fp32, up_mode="bf16", tag="6"):
+    """``calibrate`` (on 4 structured images other than ``x``) →
+    ``fused_int8_variables`` → ``fused_int8_apply`` in ``up_mode`` on the
+    generator ``g`` (its fp32 output ``y_fp32``)."""
     import torch
 
     from cycle_depth_estimation_tpu_torch.models import quantization as q
@@ -683,9 +834,13 @@ def phase_fused_int8(g, x, y_fp32):
         fused_in_epilogue, plain_epilogue)
 
     calib = torch.from_numpy(q.synthetic_calibration_batch(2, 4, SIZE))
-    static = q.calibrate(q.Int8ResnetGenerator(N_BLOCKS),
+    static = q.calibrate(q.Int8ResnetGenerator(N_BLOCKS, up_mode=g.up_mode),
                          q.int8_generator_variables(g), calib)
     fused = q.fused_int8_variables(static)
+
+    def forward():
+        return q.fused_int8_apply(fused, x, n_blocks=N_BLOCKS, up_mode=up_mode)
+
     plain_inputs, site_errs, drift = [], [], []
 
     def recorded(y, inv, residual=None, **kw):
@@ -703,16 +858,16 @@ def phase_fused_int8(g, x, y_fp32):
         return out
 
     with mock.patch.object(q, "fused_in_epilogue", recorded):
-        with counted(fused_in_epilogue, 0, "plain fused int8 forward"):
-            y_p = q.fused_int8_apply(fused, x, n_blocks=N_BLOCKS)
+        with counted(fused_in_epilogue, 0, f"plain {up_mode} int8 forward"):
+            y_p = forward()
     fused_in_epilogue.variant_launches.clear()
-    with counted(fused_in_epilogue, PER_FORWARD, "fused int8 forward"):
+    with counted(fused_in_epilogue, PER_FORWARD, f"{up_mode} int8 forward"):
         with mock.patch.object(q, "fused_in_epilogue", checked):
-            y_k = q.fused_int8_apply(fused, x, n_blocks=N_BLOCKS)
+            y_k = forward()
     torch.cuda.synchronize()
     by_variant = dict(fused_in_epilogue.variant_launches)
     if by_variant.get("generic") or sum(by_variant.values()) != PER_FORWARD:
-        raise AssertionError(f"fused int8 forward: epilogue launches by "
+        raise AssertionError(f"{up_mode} int8 forward: epilogue launches by "
                              f"variant {by_variant}: not all {PER_FORWARD} "
                              "took the cluster kernel")
     del plain_inputs
@@ -725,25 +880,54 @@ def phase_fused_int8(g, x, y_fp32):
     # while the strict check is the per-site one.
     cos_plain = cosine(y_k, y_p)
     cos_fp32 = cosine(y_k, y_fp32)
-    if not (cos_plain >= 0.99 and cos_fp32 >= 0.99):
-        raise AssertionError(f"fused int8: cosine vs plain {cos_plain}, "
-                             f"vs fp32 {cos_fp32}")
-    log(f"phase 6: per-site kernel vs plain on the path's own inputs: max "
-        f"abs err {max(e for e, _ in site_errs):.3g}, worst int8 mismatch "
-        f"share {max(f for _, f in site_errs):.2e} over {len(site_errs)} sites")
-    log("phase 6: relative difference of each site's input, kernel path vs "
-        "plain path: " + " ".join(f"{d:.2e}" for d in drift))
+    cos_plain_fp32 = cosine(y_p, y_fp32)
+    bar = FP32_COSINE_FLOOR.get(up_mode, 0.99)
+    if not (cos_plain >= 0.99 and cos_fp32 >= bar):
+        raise AssertionError(f"{up_mode} int8: cosine vs plain {cos_plain}, "
+                             f"vs fp32 {cos_fp32} (plain path vs fp32 "
+                             f"{cos_plain_fp32}, bar {bar})")
+    log(f"phase {tag}: {up_mode}: per-site kernel vs plain on the path's own "
+        f"inputs: max abs err {max(e for e, _ in site_errs):.3g}, worst int8 "
+        f"mismatch share {max(f for _, f in site_errs):.2e} over "
+        f"{len(site_errs)} sites")
+    log(f"phase {tag}: {up_mode}: relative difference of each site's input, "
+        "kernel path vs plain path: " + " ".join(f"{d:.2e}" for d in drift))
     iters = 10
     with counted(fused_in_epilogue, (iters + 3) * PER_FORWARD, "int8 timing"):
-        t = ms_per_call(lambda: q.fused_int8_apply(fused, x, n_blocks=N_BLOCKS),
-                        iters=iters)
+        t = ms_per_call(forward, iters=iters)
     ips = BATCH / t * 1e3
-    log(f"phase 6 ok: fused int8 bs{BATCH} {SIZE}^2 end-to-end cosine vs plain path "
-        f"{cos_plain:.6f}, vs fp32 generator {cos_fp32:.6f}; {t:.2f} "
-        f"ms/forward = {ips:.1f} img/s (before the epilogue's redesign: "
-        f"{INT8_EARLIER_IPS} img/s); {PER_FORWARD} epilogue launches per "
+    earlier = (f" (before the epilogue's redesign: {INT8_EARLIER_IPS} img/s)"
+               if up_mode == "bf16" else "")
+    log(f"phase {tag} ok: fused int8 up_mode {up_mode} bs{BATCH} {SIZE}^2 "
+        f"end-to-end cosine vs plain path {cos_plain:.6f}, vs its fp32 "
+        f"{g.up_mode} generator {cos_fp32:.6f} (plain path "
+        f"{cos_plain_fp32:.6f}, bar {bar:.4f}); {t:.2f} ms/forward = "
+        f"{ips:.1f} img/s{earlier}; {PER_FORWARD} epilogue launches per "
         f"forward, by variant {by_variant}")
-    return ips, lambda: q.fused_int8_apply(fused, x, n_blocks=N_BLOCKS)
+    return ips, forward
+
+
+def phase_up_modes(g, x, y_fp32):
+    """Phase 6 in each all-int8 up mode; 'resize_conv_int8' on a seeded
+    resize_conv generator against its own fp32 forward."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models.networks import (
+        ResnetGenerator)
+    from cycle_depth_estimation_tpu_torch.ops.init import init_weights
+
+    rc = init_weights(ResnetGenerator(3, 3, NGF, N_BLOCKS,
+                                      up_mode="resize_conv"),
+                      generator=torch.Generator().manual_seed(0)).cuda().eval()
+    with torch.no_grad():
+        y_rc = rc(x)
+    ips, fwds = {}, {}
+    for mode in UP_MODES:
+        gen, ref = (rc, y_rc) if mode == "resize_conv_int8" else (g, y_fp32)
+        ips[mode], fwds[mode] = phase_fused_int8(gen, x, ref, mode, "6b")
+    log("phase 6b ok: img/s " + ", ".join(f"{m} {v:.1f}"
+                                          for m, v in ips.items()))
+    return ips, fwds
 
 
 def phase_profile(forwards):
@@ -1028,15 +1212,7 @@ def phase_train_cli():
                 "--niter_decay", "0", "--save_epoch_freq", "1",
                 "--print_freq", "2", "--display_freq", "4",
                 "--device", "cuda"]
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "cycle_depth_estimation_tpu_torch.train",
-             *args], cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=600)
-        t_cli = time.perf_counter() - t
-        if proc.returncode != 0:
-            raise AssertionError(f"train CLI exited {proc.returncode}:\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        _, t_cli = end_cli(start_cli(TRAIN_CLI, args), "train CLI")
         expr = os.path.join(tmp, "ck", "smoke")
         want = [f"1_net_{n}.pth" for n in ("D_A", "D_B", "G_A", "G_B")]
         want += ["1_train_state.pth", "loss_log.txt", "scalars.jsonl",
@@ -1055,23 +1231,341 @@ def phase_train_cli():
             raise AssertionError(f"train CLI: steps {step}, {resumed.step}, "
                                  f"loss lines {len(lines)}")
     log(f"phase 9 ok: python -m cycle_depth_estimation_tpu_torch.train at ngf "
-        f"{NGF} ndf {NDF} {size}^2 batch 2 ({t_cli:.1f} s) wrote the four "
+        f"{NGF} ndf {NDF} {size}^2 batch 2 ({t_cli:.1f} s, beside phase 12's "
+        "CLI) wrote the four "
         "nets, the train state, loss_log.txt, scalars.jsonl and "
         "web/index.html; resumed from them for epoch 2")
+
+
+def phase_unet_instance_norm(gen):
+    """The UNet-256 with InstanceNorm: forward and backward at full width,
+    each InstanceNorm call's output and input gradient held against the
+    plain versions on the inputs the path gave it; then the 1² plane."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models.networks import define_G
+    from cycle_depth_estimation_tpu_torch.ops import layers
+    from cycle_depth_estimation_tpu_torch.ops.kernels import (
+        instance_norm as kin)
+
+    g = define_G(3, 3, NGF, "unet_256", norm="instance",
+                 generator=torch.Generator().manual_seed(1)).cuda().train()
+    x = torch.randn(BATCH, 3, SIZE, SIZE, generator=gen, device="cuda")
+    w = torch.randn(BATCH, 3, SIZE, SIZE, generator=gen, device="cuda")
+    fwd, bwd = [], []
+    real_bwd = kin._InstanceNormFn.backward
+
+    def recording(v, eps=1e-5):
+        y = kin.instance_norm(v, eps)
+        fwd.append((v.detach(), y.detach().clone()))  # ReLUs work in place
+        return y
+
+    def recording_bwd(ctx, dy):
+        dx, *rest = real_bwd(ctx, dy)
+        x_saved, *stats = ctx.saved_tensors
+        bwd.append((x_saved.detach(), dy, tuple(stats), dx))
+        return (dx, *rest)
+
+    n_in = 2 * (8 - 2) + 1  # down norms of levels 1-6, up norms of 1-7
+    with mock.patch.object(layers, "instance_norm", recording), \
+            mock.patch.object(kin._InstanceNormFn, "backward",
+                              staticmethod(recording_bwd)), \
+            counted(kin.instance_norm, n_in, "UNet forward"), \
+            counted(kin.instance_norm_backward, n_in, "UNet backward"):
+        (g(x) * w).sum().backward()
+    torch.cuda.synchronize()
+    planes, max_f, max_b = {}, 0.0, 0.0
+    for v, y in fwd:
+        want = kin.plain_instance_norm(v)
+        err = float((y - want).abs().max())
+        planes[tuple(v.shape)] = planes.get(tuple(v.shape), 0) + 1
+        if err > 1e-4:
+            raise AssertionError(f"UNet in_fwd {tuple(v.shape)}: {err}")
+        max_f = max(max_f, err)
+    for v, dy, stats, dx in bwd:
+        want = kin.plain_instance_norm_backward(v, dy, stats=stats or None)
+        err = float((dx - want).abs().max())
+        scale = float(want.abs().max())
+        if err > 1e-4 * max(1.0, scale):
+            raise AssertionError(f"UNet in_bwd {tuple(v.shape)}: {err} "
+                                 f"(max |dx| {scale})")
+        max_b = max(max_b, err / max(1.0, scale))
+    sides = sorted({s[2] for s in planes}, reverse=True)
+    # a plane of one element: variance 0, output 0, gradient 0 (not a UNet
+    # plane at 256²: its innermost level has no norm)
+    one = torch.randn(BATCH, 8 * NGF, 1, 1, generator=gen, device="cuda")
+    n0, b0 = kin.instance_norm.launches, kin.instance_norm_backward.launches
+    y1 = kin.instance_norm(one)
+    stats1 = kin.plain_instance_norm_stats(one)
+    dx1 = kin.instance_norm_backward(one, torch.ones_like(one), stats=stats1)
+    torch.cuda.synchronize()
+    kin.instance_norm.launches, kin.instance_norm_backward.launches = n0, b0
+    if bool(y1.abs().max() > 0) or bool(dx1.abs().max() > 0):
+        raise AssertionError("instance_norm of a 1x1 plane is not 0")
+    log(f"phase 10 ok: UNet-256 --norm instance bs{BATCH} {SIZE}^2 forward "
+        f"and backward: {len(fwd)} in_fwd and {len(bwd)} in_bwd launches "
+        f"over planes {sides[0]}^2 .. {sides[-1]}^2 "
+        f"({len(planes)} shapes), each held against the plain version on "
+        f"its own inputs: in_fwd max abs err {max_f:.3g}, in_bwd max err "
+        f"{max_b:.3g} (relative to max(1, max |dx|)); the 1^2 plane gives 0")
+    del g, fwd, bwd
+
+
+def pix2pix_config(**kw):
+    from cycle_depth_estimation_tpu_torch.config import (Config,
+                                                         apply_model_defaults)
+
+    return apply_model_defaults(Config(
+        model="pix2pix", batch_size=BATCH, fine_size=SIZE, ngf=NGF, ndf=NDF,
+        device="cuda", **kw))
+
+
+def phase_pix2pix_step():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.models import quantization as q
+
+    cfg = pix2pix_config()
+    if (cfg.net_g, cfg.norm, cfg.no_dropout, cfg.no_lsgan, cfg.pool_size,
+            cfg.lambda_l1) != ("unet_256", "batch", False, True, 0, 100.0):
+        raise AssertionError(f"pix2pix defaults: {cfg}")
+    model = create_model(cfg)
+    torch.manual_seed(0)
+    state = model.init_state()
+    batch = {"A": torch.from_numpy(
+                 q.synthetic_calibration_batch(6, BATCH, SIZE)).cuda(),
+             "B": torch.from_numpy(
+                 q.synthetic_calibration_batch(7, BATCH, SIZE)).cuda()}
+    stats0 = {k: {n: b.clone() for n, b in net.named_buffers()}
+              for k, net in state.nets.items()}
+    l1 = []
+    for i in range(5):
+        state, m = model.train_step(state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"pix2pix step {i}: losses {m}")
+        l1.append(m["G_L1"])
+        if i == 0:
+            first = m
+            moved = {k: sum(not torch.equal(b, stats0[k][n])
+                            for n, b in net.named_buffers()
+                            if "running" in n)
+                     for k, net in state.nets.items()}
+            counts = {k: int(net.state_dict()[next(
+                n for n in net.state_dict() if n.endswith("tracked"))])
+                for k, net in state.nets.items()}
+            want = {k: 2 * sum(isinstance(mod, torch.nn.BatchNorm2d)
+                               for mod in net.modules())
+                    for k, net in state.nets.items()}
+            if moved != want or counts != {"G": 1, "D": 3}:
+                raise AssertionError(f"pix2pix BatchNorm statistics: moved "
+                                     f"{moved} of {want}, counts {counts}")
+    if not l1[-1] < l1[0]:
+        raise AssertionError(f"pix2pix G_L1 on a fixed batch: {l1}")
+    log(f"phase 11: pix2pix first step losses {first}; BatchNorm running "
+        f"statistics moved {moved} (batch counts {counts}); G_L1 over 5 "
+        f"steps on one batch: " + " ".join(f"{v:.4f}" for v in l1))
+
+    rates = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        model.train_step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(TRAIN_STEPS_TIMED):
+            state, _ = model.train_step(state, batch)
+        torch.cuda.synchronize()
+        rates[tf32] = ((time.perf_counter() - t) / TRAIN_STEPS_TIMED,
+                       torch.cuda.max_memory_allocated())
+    torch.backends.cudnn.allow_tf32 = False
+    (dt, peak), (dt32, _) = rates[False], rates[True]
+    log(f"phase 11: pix2pix train step bs{BATCH} {SIZE}^2 fp32 (TF32 off): "
+        f"{dt * 1e3:.1f} ms/step = {1 / dt:.3f} steps/s = {BATCH / dt:.1f} "
+        f"img/s; peak memory {peak / 2 ** 30:.2f} GiB; with cuDNN TF32: "
+        f"{dt32 * 1e3:.1f} ms/step = {BATCH / dt32:.1f} img/s")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        raise AssertionError("profile of the pix2pix step: no device time")
+    log(f"phase 11: profiled pix2pix step: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"phase 11:   {e.self_device_time_total / 1e3 / busy:6.1%} "
+            f"{e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
+            f"{e.key[:90]}")
+    log("phase 11 ok")
+    return BATCH / dt
+
+
+def start_pix2pix_cli():
+    """Phase 12's first part: 4 aligned PNGs and ``python -m
+    cycle_depth_estimation_tpu_torch.train --model pix2pix`` started in a
+    process of its own (``run["cli"]``). It runs beside phase 9, which
+    times nothing; the caller ends it before the next phase."""
+    import numpy as np
+    from PIL import Image
+
+    size = CLI_SIZE
+    run = {"dir": tempfile.TemporaryDirectory(), "size": size,
+           "net": ["--netG", f"unet_{size}", "--load_size", str(size + 8),
+                   "--fine_size", str(size)]}
+    tmp = run["dir"].name
+    rng = np.random.RandomState(2)
+    for phase in ("train", "test"):
+        os.makedirs(os.path.join(tmp, phase))
+        for i in range(4):
+            Image.fromarray(rng.randint(0, 256, (size, 2 * size, 3), np.uint8)
+                            ).save(os.path.join(tmp, phase, f"ab{i}.png"))
+    run["args"] = ["--dataroot", tmp, "--checkpoints_dir",
+                   os.path.join(tmp, "ck"), "--name", "p2p", "--model",
+                   "pix2pix", "--ngf", str(NGF), "--ndf", str(NDF),
+                   *run["net"], "--batch_size", "2", "--niter", "1",
+                   "--niter_decay", "0", "--save_epoch_freq", "1",
+                   "--print_freq", "2", "--display_freq", "4", "--device",
+                   "cuda"]
+    run["cli"] = start_cli(TRAIN_CLI, run["args"] + ["--num_threads", "2"])
+    return run
+
+
+def start_pix2pix_resume(run):
+    """Phase 12's second part, once the first has ended: the resume for
+    epoch 2 over two loader processes with the augmentation on the card,
+    again as ``python -m`` in a process of its own (``run["resume"]``), so
+    that the loader's worker processes, its forkserver and Python's
+    resource tracker end with it and ``end_cli`` can see that they did."""
+    expr = os.path.join(run["dir"].name, "ck", "p2p")
+    want = ["1_net_G.pth", "1_net_D.pth", "1_train_state.pth",
+            "loss_log.txt", os.path.join("web", "index.html")]
+    missing = [f for f in want if not os.path.exists(os.path.join(expr, f))]
+    if missing:
+        raise AssertionError(f"pix2pix train CLI did not write {missing}")
+    run["resume"] = start_cli(
+        TRAIN_CLI, run["args"] + ["--continue_train", "--epoch_count", "2",
+                                  "--niter", "2", "--worker_procs", "2",
+                                  "--device_aug"])
+
+
+def phase_pix2pix_cli(run):
+    """Phase 12 after both parts have ended: what the resume wrote, and the
+    test CLI on its checkpoint."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.test import main as test_main
+
+    tmp, size = run["dir"].name, run["size"]
+    expr = os.path.join(tmp, "ck", "p2p")
+    step = torch.load(os.path.join(expr, "2_train_state.pth"),
+                      map_location="cpu", weights_only=True)["step"]
+    with open(os.path.join(expr, "loss_log.txt")) as f:
+        lines = [ln for ln in f if ln.startswith("(epoch: 2")]
+    if step != 4 or not lines:
+        raise AssertionError(f"pix2pix resume: step {step}, {len(lines)} "
+                             "epoch-2 loss lines")
+    web_dir = test_main(["--dataroot", tmp, "--model", "pix2pix",
+                         "--ngf", str(NGF), "--ndf", str(NDF), *run["net"],
+                         "--checkpoints_dir", os.path.join(tmp, "ck"),
+                         "--name", "p2p",
+                         "--results_dir", os.path.join(tmp, "results"),
+                         "--device", "cuda"])
+    images = sorted(os.listdir(os.path.join(web_dir, "images")))
+    if len(images) != 12:
+        raise AssertionError(f"pix2pix test CLI gallery: {images}")
+    run["dir"].cleanup()
+    log(f"phase 12 ok: python -m cycle_depth_estimation_tpu_torch.train "
+        f"--model pix2pix (unet_{size}, {size}^2 from {size}x{2 * size} AB "
+        f"PNGs, batch 2, --num_threads 2) wrote nets, train state, log and "
+        f"page ({run['seconds']:.1f} s, beside phase 9); python -m ... "
+        f"--continue_train resumed for epoch 2 with --worker_procs 2 "
+        f"--device_aug ({run['resume_seconds']:.1f} s, beside phase 10) and "
+        f"left no process running; the test CLI --model pix2pix wrote "
+        f"{len(images)} images from the checkpoint")
+
+
+LOADERS = {  # name: the train CLI's loader flags
+    "serial": ["--num_threads", "0"],
+    "4 threads (the default)": ["--num_threads", "4"],
+    "4 processes": ["--worker_procs", "4"],
+    "serial, --device_aug": ["--num_threads", "0", "--device_aug"],
+    "4 threads, --device_aug": ["--num_threads", "4", "--device_aug"],
+}
+
+
+def bench_loaders(n_images=96):
+    """The pix2pix train CLI at the JAX defaults (unet_256, batch 8,
+    load_size 286, fine_size 256) on ``n_images`` aligned 256×512 JPEGs
+    (the facades layout), once per loader of ``LOADERS``, two epochs each,
+    as ``python -m`` in a process of its own. From the CLI's per-step lines
+    (``--print_freq`` one batch): the wait for the first batch of epoch 1
+    (pool start included), and in epoch 2 the mean wait for a batch
+    (``data:``) and the mean step (``time:``)."""
+    import re
+
+    import numpy as np
+    from PIL import Image
+
+    from cycle_depth_estimation_tpu_torch.models.quantization import (
+        synthetic_calibration_batch)
+
+    line = re.compile(r"\(epoch: (\d+), iters: \d+, time: ([\d.]+), "
+                      r"data: ([\d.]+)\)")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "train"))
+        img = synthetic_calibration_batch(5, n_images, SIZE)
+        img = ((img.transpose(0, 2, 3, 1) + 1) * 127.5).round().astype(np.uint8)
+        for i in range(n_images):
+            Image.fromarray(np.concatenate([img[i], img[(i + 1) % n_images]],
+                                           axis=1)).save(
+                os.path.join(tmp, "train", f"{i:03d}.jpg"), quality=95)
+        results = {}
+        for name, flags in LOADERS.items():
+            out, wall = end_cli(start_cli(TRAIN_CLI, [
+                "--dataroot", tmp, "--model", "pix2pix", "--checkpoints_dir",
+                os.path.join(tmp, "ck"), "--name", "bench", "--batch_size",
+                str(BATCH), "--niter", "2", "--niter_decay", "0",
+                "--print_freq", str(BATCH), "--display_freq", "1000000000",
+                "--save_latest_freq", "1000000000", "--save_epoch_freq",
+                "1000", "--device", "cuda", *flags]), f"loader {name}")
+            steps = [(int(e), float(ts), float(td))
+                     for e, ts, td in line.findall(out)]
+            e2 = [(ts, td) for e, ts, td in steps if e == 2]
+            if len(steps) != 2 * (n_images // BATCH) or not e2:
+                raise AssertionError(f"{name}: {len(steps)} step lines")
+            r = {"first_batch_s": steps[0][2],
+                 "data_s_per_step": float(np.mean([td for _, td in e2])),
+                 "step_s": float(np.mean([ts for ts, _ in e2])),
+                 "wall_s": wall}
+            r["img_per_s"] = BATCH / (r["data_s_per_step"] + r["step_s"])
+            results[name] = r
+            log(f"loaders: {name}: first batch {r['first_batch_s']:.3f} s; "
+                f"epoch 2: data {r['data_s_per_step'] * 1e3:.1f} ms/step, "
+                f"step {r['step_s'] * 1e3:.1f} ms, so {r['img_per_s']:.1f} "
+                f"img/s; call {wall:.1f} s")
+    log("loaders: " + json.dumps(results))
 
 
 def main() -> int:
     import torch
 
     sweep = sys.argv[1:2] == ["--sweep-epilogue"] and len(sys.argv) <= 3
-    if sys.argv[1:] and not sweep:
-        print("usage: chip_smoke.py [--sweep-epilogue [TABLE]]",
-              file=sys.stderr)
+    loaders = sys.argv[1:] == ["--bench-loaders"]
+    if sys.argv[1:] and not (sweep or loaders):
+        print("usage: chip_smoke.py [--sweep-epilogue [TABLE] | "
+              "--bench-loaders]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     from cycle_depth_estimation_tpu_torch.models import quantization
     from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
         instance_norm, instance_norm_backward)
@@ -1088,9 +1582,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
 
+    if loaders:
+        bench_loaders()
+        check_no_children()
+        return 0
     phase_build()
     if sweep:
         sweep_epilogue(gen, *sys.argv[2:])
+        check_no_children()
         return 0
     in_tot, in_err = phase_instance_norm(gen)
     bwd_tot, bwd_err = phase_instance_norm_backward(gen)
@@ -1105,20 +1604,43 @@ def main() -> int:
     ips_bf16, fwd_bf16 = phase_bf16(g, x)
     phase_cli()
     ips_int8, fwd_int8 = phase_fused_int8(g, x, y_fp32)
-    phase_profile({"bf16 generator": fwd_bf16, "fused int8": fwd_int8})
+    ips_up, fwd_up = phase_up_modes(g, x, y_fp32)
+    phase_profile({"bf16 generator": fwd_bf16, "fused int8": fwd_int8,
+                   "fused int8, int8_phases ups": fwd_up["int8_phases"]})
     serving = {"instance_norm": instance_norm.launches,
                "int8_epilogue": fused_in_epilogue.launches}
-    del g, y_fp32, fwd_bf16, fwd_int8
+    del g, y_fp32, fwd_bf16, fwd_int8, fwd_up
     torch.cuda.empty_cache()
 
     instance_norm.launches = 0
     instance_norm_backward.launches = 0
     fused_in_epilogue.launches = 0
     ips_train = phase_train_step()
-    phase_train_cli()
+    p2p_cli = start_pix2pix_cli()
+    try:
+        phase_train_cli()
+    finally:
+        p2p_cli["seconds"] = end_cli(p2p_cli.pop("cli"),
+                                     "pix2pix train CLI")[1]
     training = {"instance_norm": instance_norm.launches,
                 "instance_norm_bwd": instance_norm_backward.launches}
-    for path, counts in (("serving", serving), ("training", training)):
+    torch.cuda.empty_cache()
+
+    instance_norm.launches = 0
+    instance_norm_backward.launches = 0
+    fused_in_epilogue.launches = 0
+    start_pix2pix_resume(p2p_cli)  # beside phase 10, which times nothing
+    try:
+        phase_unet_instance_norm(gen)
+    finally:
+        p2p_cli["resume_seconds"] = end_cli(p2p_cli.pop("resume"),
+                                            "pix2pix train CLI resume")[1]
+    ips_p2p = phase_pix2pix_step()
+    phase_pix2pix_cli(p2p_cli)
+    pix2pix = {"instance_norm": instance_norm.launches,
+               "instance_norm_bwd": instance_norm_backward.launches}
+    for path, counts in (("serving", serving), ("training", training),
+                         ("pix2pix", pix2pix)):
         for name, n in counts.items():
             if n == 0:
                 raise AssertionError(f"{name} was not launched on the "
@@ -1131,16 +1653,22 @@ def main() -> int:
     kernels = [
         {"name": "instance_norm", "route": "triton", "source": in_source,
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/instance_norm.py:55",
-         "launches": serving["instance_norm"] + training["instance_norm"],
+         "launches": (serving["instance_norm"] + training["instance_norm"]
+                      + pix2pix["instance_norm"]),
          "launches_by_path": {"serving": serving["instance_norm"],
-                              "training": training["instance_norm"]},
+                              "training": training["instance_norm"],
+                              "pix2pix": pix2pix["instance_norm"]},
          "max_abs_err": in_err,
          "ms": in_tot["ms"], "plain_ms": in_tot["plain_ms"],
          "bound_ms": in_bound, "bound_by": in_by,
          "library_ms": in_tot["library_ms"]},
         {"name": "instance_norm_bwd", "route": "triton", "source": in_source,
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/instance_norm.py:105",
-         "launches": training["instance_norm_bwd"], "max_abs_err": bwd_err,
+         "launches": (training["instance_norm_bwd"]
+                      + pix2pix["instance_norm_bwd"]),
+         "launches_by_path": {"training": training["instance_norm_bwd"],
+                              "pix2pix": pix2pix["instance_norm_bwd"]},
+         "max_abs_err": bwd_err,
          "ms": bwd_tot["ms"], "plain_ms": bwd_tot["plain_ms"],
          "bound_ms": bwd_bound, "bound_by": bwd_by,
          "library_ms": bwd_tot["library_ms"]},
@@ -1150,17 +1678,23 @@ def main() -> int:
          "launches": serving["int8_epilogue"], "max_abs_err": ep_err,
          "ms": ep_tot["ms"], "plain_ms": ep_tot["plain_ms"],
          "bound_ms": ep_bound, "bound_by": ep_by, "library_ms": None,
-         "generic_variant_ms": ep_tot["generic_ms"]},
+         "generic_variant_ms": ep_tot["generic_ms"],
+         "int8_up_mode_forward_ms": ep_tot["up_mode_ms"],
+         "int8_up_mode_forward_bound_ms": ep_tot["up_mode_bound_ms"]},
     ]
     log(f"generator img/s: fp32 {ips_fp32:.1f}, bf16 {ips_bf16:.1f}, fused "
-        f"int8 {ips_int8:.1f}; CycleGAN training fp32 {ips_train:.1f} img/s "
-        f"(bs{BATCH}, {SIZE}^2); kernel ms are sums over the calls of one "
-        "forward (23: instance_norm in bf16, int8_epilogue) or of one fp32 "
-        f"train step ({TRAIN_PER_STEP}: instance_norm_bwd); total "
+        f"int8 {ips_int8:.1f}, "
+        + ", ".join(f"{m} {v:.1f}" for m, v in ips_up.items())
+        + f"; CycleGAN training fp32 {ips_train:.1f} img/s, pix2pix "
+        f"training fp32 {ips_p2p:.1f} img/s (bs{BATCH}, {SIZE}^2); kernel "
+        "ms are sums over the calls of one forward (23: instance_norm in "
+        "bf16, int8_epilogue in bf16 up mode) or of one fp32 CycleGAN train "
+        f"step ({TRAIN_PER_STEP}: instance_norm_bwd); total "
         f"{time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
+    check_no_children()
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

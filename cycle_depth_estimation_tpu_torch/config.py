@@ -1,5 +1,6 @@
 """Config of the port: the subset of the JAX package's ``Config`` that the
-test CLI, the CycleGAN model and the train CLI read, with the same field
+test CLI, the CycleGAN and pix2pix models, the data layer and the train CLI
+read, with the same field
 names, defaults, reference flag aliases (``--loadSize``, ``--netD``,
 ``--lambda_A`` …) and two-phase parse (base flags, then per-model defaults
 for flags the user did not set). ``device`` is new: the port runs on
@@ -26,6 +27,7 @@ _FLAG_ALIASES = {
     "n_layers_D": "n_layers_d",
     "lambda_A": "lambda_a",
     "lambda_B": "lambda_b",
+    "lambda_L1": "lambda_l1",
 }
 
 
@@ -48,6 +50,7 @@ class Config:
     model: str = "cycle_gan"
     direction: str = "AtoB"
     epoch: str = "latest"
+    num_threads: int = 4            # loader threads
     checkpoints_dir: str = "./checkpoints"
     norm: str = "instance"
     serial_batches: bool = False
@@ -55,6 +58,9 @@ class Config:
     max_dataset_size: int = 2 ** 31
     resize_or_crop: str = "resize_and_crop"
     no_flip: bool = False
+    # the host decodes and resizes only (uint8); crop, flip and normalize
+    # run on the device (data/device_transforms.py); resize_and_crop only
+    device_aug: bool = False
     init_type: str = "normal"
     init_gain: float = 0.02
     # train options (reference options/train_options.py)
@@ -80,6 +86,8 @@ class Config:
     lambda_identity: float = 0.5
     d_steps_per_g: int = 4          # the reference steps D 4× per G step
                                     # (cycle_gan_model.py:151-160)
+    lambda_l1: float = 100.0        # pix2pix --lambda_L1
+    worker_procs: int = 0           # > 0: loader processes instead of threads
     # test options
     results_dir: str = "./results/"
     aspect_ratio: float = 1.0
@@ -102,6 +110,8 @@ class Config:
 # per-model default overrides (the JAX package's MODEL_DEFAULTS, ported part)
 MODEL_DEFAULTS = {
     "cycle_gan": dict(no_dropout=True),
+    "pix2pix": dict(pool_size=0, no_lsgan=True, norm="batch",
+                    dataset_mode="aligned", net_g="unet_256"),
     "test": dict(no_dropout=True, dataset_mode="single", is_train=False),
 }
 

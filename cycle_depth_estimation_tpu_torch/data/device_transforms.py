@@ -1,0 +1,137 @@
+"""Image augmentation on the device (the image part of the JAX package's
+``data/device_transforms.py``).
+
+With ``device_aug`` the host decodes and resizes only and ships uint8 at
+``load_size`` (a quarter of the float32 bytes); the crop, flip,
+ToTensor/Normalize(0.5) and grayscale run here, batched, on the batch's
+device. The arithmetic is the host pipeline's (``transforms.py``), in the
+same order, so forced crops and flips give the host's numbers exactly. Crop
+offsets and flips are drawn from an explicit ``torch.Generator`` on the
+batch's device: one seed gives one sequence, though not the JAX package's
+(``jax.random``) draws.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Sequence, Tuple
+
+import torch
+
+_LUMA = (0.299, 0.587, 0.114)
+UNALIGNED_GROUPS = (("A",), ("B",))
+ALIGNED_GROUPS = (("A", "B"),)   # one draw for the AB pair
+_ALIASES = {"img_source": "A", "img_target": "B"}
+
+
+def crop_flip_normalize(x: torch.Tensor, tops: torch.Tensor,
+                        lefts: torch.Tensor, flips: torch.Tensor,
+                        fine_size: int, *, grayscale: bool = False,
+                        dtype=torch.float32) -> torch.Tensor:
+    """NCHW uint8 ``x`` (or float in [0, 255]) → the ``fine_size`` crop at
+    (``tops``, ``lefts``), flipped along W where ``flips``, scaled to
+    [-1, 1]; ITU-R 601 luma to one channel with ``grayscale``."""
+    n, c = x.shape[:2]
+    span = torch.arange(fine_size, device=x.device)
+    rows = tops.long()[:, None] + span
+    cols = lefts.long()[:, None] + span
+    cols = torch.where(flips[:, None], cols.flip(1), cols)
+    y = x[torch.arange(n, device=x.device)[:, None, None, None],
+          torch.arange(c, device=x.device)[None, :, None, None],
+          rows[:, None, :, None], cols[:, None, None, :]]
+    y = (y.to(dtype) / 255.0 - 0.5) / 0.5
+    if grayscale:
+        y = (y[:, 0:1] * _LUMA[0] + y[:, 1:2] * _LUMA[1]
+             + y[:, 2:3] * _LUMA[2])
+    return y
+
+
+def draw_augment_params(generator: torch.Generator, n: int,
+                        in_hw: Tuple[int, int], fine_size: int, *,
+                        train: bool = True, no_flip: bool = False,
+                        aligned: bool = False):
+    """Per-sample crop offsets and flips on the generator's device.
+
+    Unaligned and single — train: offsets uniform over [0, size − fine] and
+    Bernoulli(0.5) flips; eval: the center crop, no flip. Aligned: offsets
+    over [0, size − fine − 1] (the reference's inclusive ``randint`` high),
+    at eval too; flips in train only.
+    """
+    h, w = in_hw
+    dev = generator.device
+    if aligned or train:
+        extra = 0 if aligned else 1
+        tops = torch.randint(0, max(1, h - fine_size + extra), (n,),
+                             generator=generator, device=dev)
+        lefts = torch.randint(0, max(1, w - fine_size + extra), (n,),
+                              generator=generator, device=dev)
+    else:
+        tops = torch.full((n,), max(0, (h - fine_size) // 2), device=dev)
+        lefts = torch.full((n,), max(0, (w - fine_size) // 2), device=dev)
+        return tops, lefts, torch.zeros((n,), dtype=torch.bool, device=dev)
+    flips = torch.rand((n,), generator=generator, device=dev) < 0.5
+    return tops, lefts, flips & (train and not no_flip)
+
+
+def _augment_batch(batch: Dict[str, torch.Tensor], generator: torch.Generator,
+                   fine_size: int, train: bool, no_flip: bool,
+                   groups: Sequence[Tuple[str, ...]],
+                   aligned_flags: Sequence[bool],
+                   grayscale_keys: Sequence[str], dtype
+                   ) -> Dict[str, torch.Tensor]:
+    out = dict(batch)
+    for group, aligned in zip(groups, aligned_flags):
+        keys = [k for k in group if k in batch]
+        if not keys:
+            continue
+        n, _, h, w = batch[keys[0]].shape
+        tops, lefts, flips = draw_augment_params(
+            generator, n, (h, w), fine_size, train=train, no_flip=no_flip,
+            aligned=aligned)
+        for k in keys:
+            out[k] = crop_flip_normalize(batch[k], tops, lefts, flips,
+                                         fine_size,
+                                         grayscale=k in grayscale_keys,
+                                         dtype=dtype)
+    return out
+
+
+def device_augment_batches(iterator, cfg, generator: torch.Generator, *,
+                           groups: Sequence[Tuple[str, ...]] = UNALIGNED_GROUPS,
+                           aligned_flags: Sequence[bool] = None,
+                           grayscale_keys: Sequence[str] = (),
+                           dtype=torch.float32) -> Iterator[Dict[str, object]]:
+    """Augment the uint8 batches of ``iterator`` (datasets built with
+    ``device_aug``, tensors already on the generator's device). Tensors not
+    named in ``groups`` and the paths pass through; the reference's alias
+    keys (img_source = A, img_target = B) are put back."""
+    if aligned_flags is None:
+        aligned_flags = (False,) * len(groups)
+    named = {k for g in groups for k in g}
+    for batch in iterator:
+        images = {k: v for k, v in batch.items()
+                  if k in named and getattr(v, "ndim", 0) == 4}
+        aug = _augment_batch(images, generator, cfg.fine_size,
+                             bool(cfg.is_train), bool(cfg.no_flip), groups,
+                             aligned_flags, grayscale_keys, dtype)
+        out = {**batch, **aug}
+        for alias, base in _ALIASES.items():
+            if base in out and alias not in out:
+                out[alias] = out[base]
+        yield out
+
+
+def wrap_for_config(iterator, cfg, generator: torch.Generator):
+    """``device_augment_batches`` with the groups and grayscale sides of
+    ``cfg`` (its ``dataset_mode``, ``direction``, ``input_nc`` and
+    ``output_nc``, as the datasets pick them)."""
+    aligned = cfg.dataset_mode == "aligned"
+    if cfg.direction == "BtoA":
+        gray_a, gray_b = cfg.output_nc == 1, cfg.input_nc == 1
+    else:
+        gray_a, gray_b = cfg.input_nc == 1, cfg.output_nc == 1
+    gkeys = (("A",) if gray_a else ()) + (("B",) if gray_b else ())
+    return device_augment_batches(
+        iterator, cfg, generator,
+        groups=ALIGNED_GROUPS if aligned else UNALIGNED_GROUPS,
+        aligned_flags=(True,) if aligned else (False, False),
+        grayscale_keys=gkeys)

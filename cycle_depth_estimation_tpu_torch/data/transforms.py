@@ -80,6 +80,18 @@ def rgb_to_gray(arr: np.ndarray) -> np.ndarray:
     return (arr[..., 0:1] * 0.299 + arr[..., 1:2] * 0.587 + arr[..., 2:3] * 0.114)
 
 
+def apply_resize_only(img: Image.Image, cfg) -> np.ndarray:
+    """The host half of ``device_aug``: decode and resize only, uint8 HWC at
+    ``load_size``; crop, flip, normalize and grayscale run on the device
+    (``device_transforms.py``). Only ``resize_and_crop`` gives one shape
+    per batch."""
+    if cfg.resize_or_crop != "resize_and_crop":
+        raise ValueError(f"--device_aug supports resize_or_crop="
+                         f"resize_and_crop only (got {cfg.resize_or_crop})")
+    arr = np.asarray(resize(img, (cfg.load_size, cfg.load_size)), np.uint8)
+    return arr[:, :, None] if arr.ndim == 2 else arr
+
+
 def apply_transform(img: Image.Image, cfg, rng: Optional[np.random.Generator],
                     grayscale: bool = False) -> np.ndarray:
     """The reference get_transform pipeline for one image. ``rng=None`` is

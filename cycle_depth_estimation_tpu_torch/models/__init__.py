@@ -1,6 +1,6 @@
 """Model registry: ``--model <name>`` → model class (the JAX package's
-``models/__init__.py``). The port registers ``test`` (serving) and
-``cycle_gan`` (training)."""
+``models/__init__.py``). The port registers ``test`` (serving),
+``cycle_gan`` and ``pix2pix`` (training)."""
 
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ def register_model(name: str):
 
 def create_model(cfg, device=None):
     """Build the model ``cfg.model`` on ``device`` (default ``cfg.device``)."""
-    from . import cycle_gan, test_model  # noqa: F401  (register the models)
+    from . import cycle_gan, pix2pix, test_model  # noqa: F401  (register)
 
     if cfg.model not in _MODEL_REGISTRY:
         raise KeyError(f"model [{cfg.model}] not registered; available: "

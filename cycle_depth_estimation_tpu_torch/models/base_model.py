@@ -14,9 +14,10 @@ buffers.
   ``cosine``, ``plateau``), the plateau state kept on the host and not
   checkpointed, as in the JAX package.
 - ``save_networks`` / ``load_networks``: one ``{epoch}_net_{name}.pth`` per
-  net with the reference's state-dict names, so reference tools read them,
-  plus ``{epoch}_train_state.pth`` with the optimizer states, the pools and
-  the step.
+  net with the reference's state-dict names (BatchNorm statistics
+  included), so reference tools read them, plus ``{epoch}_train_state.pth``
+  with the optimizer states, the pools and the step; ``load_nets`` reads
+  the nets alone.
 """
 
 from __future__ import annotations
@@ -114,10 +115,21 @@ class BaseModel:
                     "step": state.step}, paths["train_state"])
         return paths
 
-    def load_networks(self, state: ModelState, epoch) -> ModelState:
+    def has_checkpoint(self, epoch) -> bool:
+        paths = self._paths(epoch)
+        return all(os.path.isfile(paths[n]) for n in self.model_names)
+
+    def load_nets(self, state: ModelState, epoch) -> ModelState:
+        """Load the nets' ``.pth`` files only (parameters and BatchNorm
+        statistics), as serving does."""
         paths = self._paths(epoch)
         for name in self.model_names:
             state.nets[name].load_state_dict(load_pth(paths[name]))
+        return state
+
+    def load_networks(self, state: ModelState, epoch) -> ModelState:
+        paths = self._paths(epoch)
+        self.load_nets(state, epoch)
         rest = torch.load(paths["train_state"], map_location=self.device,
                           weights_only=True)
         for k, sd in rest["optimizers"].items():

@@ -1,21 +1,31 @@
-"""The CycleGAN networks, losses and LR schedules in PyTorch, NCHW.
+"""The CycleGAN and pix2pix networks, losses and LR schedules in PyTorch,
+NCHW.
 
-The counterparts of ``ResnetBlock``, ``ResnetGenerator``, ``define_G``,
-``NLayerDiscriminator``, ``PixelDiscriminator``, ``define_D``, ``gan_loss``,
-``l1_loss``, ``mse_loss`` and ``lr_schedule`` in the JAX package's
-``models/networks.py``. Modules sit in one ``nn.Sequential`` exactly as the
-reference builds them (reference models/networks.py:145-236, 330-386), so
+The counterparts of ``ResnetBlock``, ``ResnetGenerator``, ``UnetGenerator``,
+``define_G``, ``NLayerDiscriminator``, ``PixelDiscriminator``, ``define_D``,
+``gan_loss``, ``l1_loss``, ``mse_loss`` and ``lr_schedule`` in the JAX
+package's ``models/networks.py``. Modules sit in ``nn.Sequential``s exactly
+as the reference builds them (reference models/networks.py:145-386), so
 ``state_dict()`` keys are the reference's and a reference ``.pth`` loads
 with ``load_state_dict``:
 
 - ResnetGenerator: ``model.1`` (conv_in), ``model.4``/``model.7`` (down),
   ``model.{10+i}.conv_block.{1, 5|6}`` (block convs; 6 with dropout),
   ``model.{10+n}``/``model.{13+n}`` (ConvTranspose up), ``model.{17+n}``
-  (conv_out);
+  (conv_out). With ``up_mode='resize_conv'`` (no reference counterpart: the
+  JAX package's fast-serving variant) each up stage is [nearest ×2, 3×3
+  conv, norm, ReLU]: ``model.{11+n}``/``model.{15+n}``, conv_out
+  ``model.{19+n}``;
+- UnetGenerator: the reference's recursive ``UnetSkipConnectionBlock``s,
+  ``model.model.{0|1}`` the outermost down conv … ``model.model.1.model.3.``
+  one level in (layout in the JAX package's ``import_unet_generator``);
 - NLayerDiscriminator: ``model.0`` (conv0), then ``model.{2+3(n-1)}`` for
   conv1 … conv{n_layers}, then conv_out three further on (``model.11`` at
-  3 layers);
-- PixelDiscriminator: ``net.0``, ``net.2``, ``net.5``.
+  3 layers); with BatchNorm, ``model.{3+3(n-1)}`` for norm{n};
+- PixelDiscriminator: ``net.0``, ``net.2``, ``net.5`` (``net.3`` the norm).
+
+Conv biases follow the reference's rule: none on a conv that a BatchNorm
+follows (``norm_uses_bias``).
 """
 
 from __future__ import annotations
@@ -38,11 +48,13 @@ class ResnetBlock(nn.Module):
     def __init__(self, dim: int, norm: str = "instance",
                  use_dropout: bool = False):
         super().__init__()
-        layers = [nn.ReflectionPad2d(1), nn.Conv2d(dim, dim, 3), Norm(norm),
-                  nn.ReLU(True)]
+        bias = norm_uses_bias(norm)
+        layers = [nn.ReflectionPad2d(1), nn.Conv2d(dim, dim, 3, bias=bias),
+                  Norm(norm, dim), nn.ReLU(True)]
         if use_dropout:
             layers.append(nn.Dropout(0.5))
-        layers += [nn.ReflectionPad2d(1), nn.Conv2d(dim, dim, 3), Norm(norm)]
+        layers += [nn.ReflectionPad2d(1), nn.Conv2d(dim, dim, 3, bias=bias),
+                   Norm(norm, dim)]
         self.conv_block = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -50,29 +62,42 @@ class ResnetBlock(nn.Module):
 
 
 class ResnetGenerator(nn.Module):
-    """7×7 entry, 2 stride-2 downs, ``n_blocks`` residual blocks, 2
-    transposed-conv ups, 7×7 exit, tanh."""
+    """7×7 entry, 2 stride-2 downs, ``n_blocks`` residual blocks, 2 ups, 7×7
+    exit, tanh. ``up_mode`` 'convtranspose' is the reference's up stage
+    (ConvTranspose2d k3 s2); 'resize_conv' is nearest ×2 then a zero-padded
+    3×3 conv, the JAX package's variant for all-int8 serving (not
+    interchangeable with ConvTranspose weights: train with it)."""
 
     def __init__(self, input_nc: int = 3, output_nc: int = 3, ngf: int = 64,
                  n_blocks: int = 9, norm: str = "instance",
-                 use_dropout: bool = False):
+                 use_dropout: bool = False, up_mode: str = "convtranspose"):
         super().__init__()
+        if up_mode not in ("convtranspose", "resize_conv"):
+            raise ValueError(f"unknown up_mode [{up_mode}]; expected "
+                             "'convtranspose' | 'resize_conv'")
         self.n_blocks = n_blocks
-        layers = [nn.ReflectionPad2d(3), nn.Conv2d(input_nc, ngf, 7),
-                  Norm(norm), nn.ReLU(True)]
+        self.up_mode = up_mode
+        bias = norm_uses_bias(norm)
+        layers = [nn.ReflectionPad2d(3), nn.Conv2d(input_nc, ngf, 7, bias=bias),
+                  Norm(norm, ngf), nn.ReLU(True)]
         for i in range(2):
             mult = 2 ** i
             layers += [nn.Conv2d(ngf * mult, ngf * mult * 2, 3, stride=2,
-                                 padding=1),
-                       Norm(norm), nn.ReLU(True)]
+                                 padding=1, bias=bias),
+                       Norm(norm, ngf * mult * 2), nn.ReLU(True)]
         layers += [ResnetBlock(ngf * 4, norm, use_dropout)
                    for _ in range(n_blocks)]
         for i in range(2):
             mult = 2 ** (2 - i)
-            layers += [nn.ConvTranspose2d(ngf * mult, ngf * mult // 2, 3,
-                                          stride=2, padding=1,
-                                          output_padding=1),
-                       Norm(norm), nn.ReLU(True)]
+            if up_mode == "resize_conv":
+                layers += [nn.Upsample(scale_factor=2, mode="nearest"),
+                           nn.Conv2d(ngf * mult, ngf * mult // 2, 3,
+                                     padding=1, bias=bias)]
+            else:
+                layers.append(nn.ConvTranspose2d(
+                    ngf * mult, ngf * mult // 2, 3, stride=2, padding=1,
+                    output_padding=1, bias=bias))
+            layers += [Norm(norm, ngf * mult // 2), nn.ReLU(True)]
         layers += [nn.ReflectionPad2d(3), nn.Conv2d(ngf, output_nc, 7),
                    nn.Tanh()]
         self.model = nn.Sequential(*layers)
@@ -95,20 +120,136 @@ class ResnetGenerator(nn.Module):
         return sites
 
 
+class UnetSkipConnectionBlock(nn.Module):
+    """One level of the reference's recursive U-Net (reference
+    models/networks.py:262-316). ``model`` is
+
+    - outermost: [down conv, submodule, ReLU, up conv (with bias), tanh];
+    - innermost: [LeakyReLU, down conv, ReLU, up conv, up norm];
+    - otherwise: [LeakyReLU, down conv, down norm, submodule, ReLU, up conv,
+      up norm (, Dropout 0.5)].
+
+    All convs are 4×4 stride 2 padding 1. A level other than the outermost
+    returns ``cat([x, model(x)])`` on channels. Its LeakyReLU works in place,
+    as the reference's does, so the skip half of the concatenation is
+    LeakyReLU(x); the ReLU that every consumer of the concatenation applies
+    first makes that equal to the JAX package's ReLU(x), forward and
+    backward.
+    """
+
+    def __init__(self, outer_nc: int, inner_nc: int,
+                 input_nc: Optional[int] = None,
+                 submodule: Optional[nn.Module] = None, outermost: bool = False,
+                 innermost: bool = False, norm: str = "batch",
+                 use_dropout: bool = False):
+        super().__init__()
+        self.outermost = outermost
+        bias = norm_uses_bias(norm)
+        input_nc = outer_nc if input_nc is None else input_nc
+        down = nn.Conv2d(input_nc, inner_nc, 4, 2, 1, bias=bias)
+        if outermost:
+            layers = [down, submodule, nn.ReLU(True),
+                      nn.ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1),
+                      nn.Tanh()]
+        elif innermost:
+            layers = [nn.LeakyReLU(0.2, True), down, nn.ReLU(True),
+                      nn.ConvTranspose2d(inner_nc, outer_nc, 4, 2, 1,
+                                         bias=bias),
+                      Norm(norm, outer_nc)]
+        else:
+            layers = [nn.LeakyReLU(0.2, True), down, Norm(norm, inner_nc),
+                      submodule, nn.ReLU(True),
+                      nn.ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1,
+                                         bias=bias),
+                      Norm(norm, outer_nc)]
+            if use_dropout:
+                layers.append(nn.Dropout(0.5))
+        self.model = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.outermost:
+            return self.model(x)
+        return torch.cat([x, self.model(x)], 1)
+
+
+class UnetGenerator(nn.Module):
+    """U-Net with ``num_downs`` halvings (unet_128: 7, unet_256: 8): level
+    channels ngf, 2ngf, 4ngf, then 8ngf; dropout on the 8ngf levels other
+    than the innermost (levels 4 … num_downs − 2, counted from the outside)
+    when ``use_dropout``."""
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 3,
+                 num_downs: int = 8, ngf: int = 64, norm: str = "batch",
+                 use_dropout: bool = False):
+        super().__init__()
+        self.num_downs = num_downs
+        block = UnetSkipConnectionBlock(ngf * 8, ngf * 8, innermost=True,
+                                        norm=norm)
+        for _ in range(num_downs - 5):
+            block = UnetSkipConnectionBlock(ngf * 8, ngf * 8, submodule=block,
+                                            norm=norm, use_dropout=use_dropout)
+        for mult in (4, 2, 1):
+            block = UnetSkipConnectionBlock(ngf * mult, ngf * mult * 2,
+                                            submodule=block, norm=norm)
+        self.model = UnetSkipConnectionBlock(output_nc, ngf, input_nc=input_nc,
+                                             submodule=block, outermost=True,
+                                             norm=norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x)
+
+    def _levels(self):
+        block = self.model
+        for _ in range(self.num_downs):
+            yield block
+            block = next((m for m in block.model
+                          if isinstance(m, UnetSkipConnectionBlock)), None)
+
+    def site_convs(self) -> Dict[str, nn.Module]:
+        """Every conv by the JAX package's param name (``down{lvl}_conv``,
+        ``up{lvl}_conv``; level 0 is the outermost)."""
+        sites = OrderedDict()
+        for lvl, block in enumerate(self._levels()):
+            sites[f"down{lvl}_conv"] = next(
+                m for m in block.model if isinstance(m, nn.Conv2d))
+            sites[f"up{lvl}_conv"] = next(
+                m for m in block.model if isinstance(m, nn.ConvTranspose2d))
+        return sites
+
+    def site_norms(self) -> Dict[str, nn.Module]:
+        """Every BatchNorm by the JAX package's name (``down{lvl}_norm``,
+        ``up{lvl}_norm``)."""
+        sites = OrderedDict()
+        for lvl, block in enumerate(self._levels()):
+            mods = list(block.model)
+            for i, m in enumerate(mods):
+                if isinstance(m, nn.BatchNorm2d):
+                    side = "up" if isinstance(mods[i - 1],
+                                              nn.ConvTranspose2d) else "down"
+                    sites[f"{side}{lvl}_norm"] = m
+        return sites
+
+
 _RESNET_BLOCKS = {"resnet_9blocks": 9, "resnet_6blocks": 6,
                   "resnet_3blocks": 3, "3blocks": 3}
+_UNET_DOWNS = {"unet_128": 7, "unet_256": 8}
 
 
 def define_G(input_nc: int, output_nc: int, ngf: int, net_g: str,
              norm: str = "instance", use_dropout: bool = False,
              init_type: str = "normal", init_gain: float = 0.02,
-             generator: Optional[torch.Generator] = None) -> ResnetGenerator:
-    """Build and initialise a generator from the reference's CLI string.
+             generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Build and initialise a generator from the reference's CLI string
+    (``resnet_{9,6,3}blocks``, ``3blocks``, ``unet_128``, ``unet_256``).
     ``generator`` seeds the init (default: seed 0)."""
-    if net_g not in _RESNET_BLOCKS:
+    if net_g in _RESNET_BLOCKS:
+        net = ResnetGenerator(input_nc, output_nc, ngf, _RESNET_BLOCKS[net_g],
+                              norm=norm, use_dropout=use_dropout)
+    elif net_g in _UNET_DOWNS:
+        net = UnetGenerator(input_nc, output_nc, _UNET_DOWNS[net_g], ngf,
+                            norm=norm, use_dropout=use_dropout)
+    else:
         raise NotImplementedError(f"Generator model name [{net_g}] is not recognized")
-    net = ResnetGenerator(input_nc, output_nc, ngf, _RESNET_BLOCKS[net_g],
-                          norm=norm, use_dropout=use_dropout)
     return init_weights(net, init_type, init_gain, generator)
 
 
@@ -129,7 +270,7 @@ class NLayerDiscriminator(nn.Module):
             stride = 2 if n < n_layers else 1
             layers += [nn.Conv2d(ndf * prev, ndf * mult, 4, stride, 1,
                                  bias=use_bias),
-                       Norm(norm), nn.LeakyReLU(0.2, True)]
+                       Norm(norm, ndf * mult), nn.LeakyReLU(0.2, True)]
         layers.append(nn.Conv2d(ndf * mult, 1, 4, 1, 1))
         if use_sigmoid:
             layers.append(nn.Sigmoid())
@@ -145,6 +286,12 @@ class NLayerDiscriminator(nn.Module):
         names = [f"conv{i}" for i in range(self.n_layers + 1)] + ["conv_out"]
         return OrderedDict(zip(names, convs))
 
+    def site_norms(self) -> Dict[str, nn.Module]:
+        """The BatchNorms by the JAX package's name (``norm1`` …
+        ``norm{n_layers}``)."""
+        norms = [m for m in self.model if isinstance(m, nn.BatchNorm2d)]
+        return OrderedDict((f"norm{i + 1}", m) for i, m in enumerate(norms))
+
 
 class PixelDiscriminator(nn.Module):
     """1×1 per-pixel discriminator (PixelGAN)."""
@@ -154,7 +301,7 @@ class PixelDiscriminator(nn.Module):
         super().__init__()
         use_bias = norm_uses_bias(norm)
         layers = [nn.Conv2d(input_nc, ndf, 1), nn.LeakyReLU(0.2, True),
-                  nn.Conv2d(ndf, ndf * 2, 1, bias=use_bias), Norm(norm),
+                  nn.Conv2d(ndf, ndf * 2, 1, bias=use_bias), Norm(norm, ndf * 2),
                   nn.LeakyReLU(0.2, True),
                   nn.Conv2d(ndf * 2, 1, 1, bias=use_bias)]
         if use_sigmoid:
@@ -167,6 +314,10 @@ class PixelDiscriminator(nn.Module):
     def site_convs(self) -> Dict[str, nn.Module]:
         convs = [m for m in self.net if isinstance(m, nn.Conv2d)]
         return OrderedDict(zip(("conv0", "conv1", "conv2"), convs))
+
+    def site_norms(self) -> Dict[str, nn.Module]:
+        return OrderedDict((("norm1", m) for m in self.net
+                            if isinstance(m, nn.BatchNorm2d)))
 
 
 def define_D(input_nc: int, ndf: int, net_d: str, n_layers_d: int = 3,

@@ -9,15 +9,23 @@ The counterpart of the JAX package's ``models/quantization.py``:
 - ``fused_int8_apply``: the serving forward. InstanceNorm is invariant to a
   per-channel positive affine map, so every conv→IN site skips the
   dequantize: the int8 conv's raw int32 output goes straight into the fused
-  epilogue kernel (IN → ReLU | +residual → requantize → pad). The two
-  ConvTranspose up stages run in bf16 (``up_mode='bf16'``, the JAX default;
-  the other up modes are not ported yet), and only conv_out dequantizes.
+  epilogue kernel (IN → ReLU | +residual → requantize → pad). ``up_mode``
+  picks the up stages: 'bf16' (the JAX default) runs the two ConvTranspose
+  stages in bf16; 'int8_dilated' and 'int8_phases' (the JAX package's
+  lhs-dilated int8 conv and its exact split into four dense int8 convs and
+  an interleave: the same integers, so both run the split, the faster of
+  the two on the GPU) and 'resize_conv_int8' (an int8 nearest ×2, then a
+  dense int8 3×3 conv; for a ``ResnetGenerator(up_mode='resize_conv')``)
+  quantize them too, so the last block, up0 and up1 requantize in the
+  epilogue kernel. Only conv_out dequantizes.
 
 Variables are nested dicts keyed like the JAX param tree (``conv_in``,
 ``down0_conv``, ``block{i}.conv1``, ``up0_conv``, ``conv_out``): int8 HWIO
 ``kernel_q``, fp32 ``scale`` and ``bias`` tensors, and ``act_scale`` as a
-Python float holding an fp32 value. The up stages keep the torch
-ConvTranspose ``weight``/``bias`` under ``params``.
+Python float holding an fp32 value. The up stages keep their fp params
+under ``params``: the torch ``weight`` and ``bias``, and ``kernel``, the
+equivalent regular conv's HWIO kernel (the JAX param), which
+``fused_int8_variables`` quantizes.
 
 Model inputs and outputs are NCHW; the int8 trunk runs NHWC inside.
 """
@@ -34,8 +42,9 @@ from ..device import resolve_device
 from ..ops.int8_conv import conv2d_int8
 from ..ops.kernels.instance_norm import instance_norm
 from ..ops.kernels.int8_epilogue import fused_in_epilogue, pad_nhwc
-from ..ops.layers import reflect_pad
-from ..utils.weights import hwio_from_conv_weight
+from ..ops.layers import conv_transpose_s2_phases, reflect_pad
+from ..utils.weights import (hwio_from_conv_transpose_weight,
+                             hwio_from_conv_weight)
 from .networks import ResnetGenerator
 
 
@@ -122,17 +131,27 @@ def int8_generator_variables(generator: ResnetGenerator,
     """Variables for ``Int8ResnetGenerator`` (dynamic-scale mode)."""
     dev = resolve_device(device)
     sites = generator.site_convs()
+    hwio = (hwio_from_conv_weight if generator.up_mode == "resize_conv"
+            else hwio_from_conv_transpose_weight)
     ups = {k: {"weight": sites[k].weight.detach().float(),
-               "bias": sites[k].bias.detach().float()}
+               "bias": sites[k].bias.detach().float(),
+               "kernel": hwio(sites[k].weight)}
            for k in ("up0_conv", "up1_conv")}
     return {"params": _tree_to(ups, dev),
             "qparams": _tree_to(quantize_resnet_generator(generator), dev)}
 
 
-def _up_bf16(h: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """ConvTranspose2d(k3, s2, p1, op1) in bf16 on NCHW."""
-    return F.conv_transpose2d(h, p["weight"].to(torch.bfloat16), None,
-                              stride=2, padding=1, output_padding=1)
+def _up_bf16(h: torch.Tensor, p: Dict[str, torch.Tensor],
+             up_mode: str = "convtranspose") -> torch.Tensor:
+    """One up stage in bf16 on NCHW, bias not added: ConvTranspose2d(k3,
+    s2, p1, op1), or for 'resize_conv' nearest ×2 and a zero-padded 3×3
+    conv."""
+    w = p["weight"].to(torch.bfloat16)
+    if up_mode == "resize_conv":
+        h = h.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        return F.conv2d(h, w, None, padding=1)
+    return F.conv_transpose2d(h, w, None, stride=2, padding=1,
+                              output_padding=1)
 
 
 class Int8ResnetGenerator:
@@ -140,11 +159,15 @@ class Int8ResnetGenerator:
 
     Call with variables from ``int8_generator_variables``. A site without a
     static ``act_scale`` quantizes with its observed abs-max and records it
-    in ``observed`` (the calibration mode).
+    in ``observed`` (the calibration mode). ``up_mode`` is the generator's
+    ('convtranspose' | 'resize_conv'); its up stages run in bf16.
     """
 
-    def __init__(self, n_blocks: int = 9):
+    def __init__(self, n_blocks: int = 9, up_mode: str = "convtranspose"):
+        if up_mode not in ("convtranspose", "resize_conv"):
+            raise ValueError(f"unknown up_mode [{up_mode}]")
         self.n_blocks = n_blocks
+        self.up_mode = up_mode
 
     @staticmethod
     def _site(x, q, name, observed, stride=1, padding=0):
@@ -185,7 +208,8 @@ class Int8ResnetGenerator:
             # the fused serving path quantizes here too (up-site scales)
             observed[f"up{i}_amax"] = h.float().abs().max()
             p = variables["params"][f"up{i}_conv"]
-            h = (_up_bf16(h, p).float() + p["bias"][:, None, None]).to(torch.bfloat16)
+            h = (_up_bf16(h, p, self.up_mode).float()
+                 + p["bias"][:, None, None]).to(torch.bfloat16)
             h = torch.relu(instance_norm(h))
         h = site(reflect_pad(h, 3), q["conv_out"], "site_conv_out", observed)
         return torch.tanh(h)
@@ -229,19 +253,28 @@ def calibrate(model: Int8ResnetGenerator, variables: Dict[str, Any],
 
 
 def fused_int8_variables(static_vars: Dict[str, Any]) -> Dict[str, Any]:
-    """Calibrated variables → fused-path variables.
+    """Calibrated variables → fused-path variables (every site int8).
 
     Every site needs a static ``act_scale``: the fused path quantizes at the
     producer, so consumer-side dynamic scales are impossible by
-    construction. The up stages keep their fp weights (bf16 up mode).
+    construction. The up kernels are quantized per output channel of their
+    equivalent regular conv's HWIO kernel, the JAX param, so the int8 values
+    and scales are the JAX package's; the fp up params stay for the bf16 up
+    mode.
     """
-    q = static_vars["qparams"]
+    q = dict(static_vars["qparams"])
     sites = [q.get(k, {}) for k in ("conv_in", "conv_out", "down0_conv",
                                      "down1_conv", "up0_conv", "up1_conv")]
     sites += [s for k, b in q.items() if k.startswith("block") for s in b.values()]
     if any("act_scale" not in s for s in sites):
         raise ValueError("fused_int8_variables needs calibrated variables "
                          "(run calibrate first)")
+    for i in range(2):
+        p = static_vars["params"][f"up{i}_conv"]
+        upq = quantize_conv_params(
+            {"kernel": torch.as_tensor(p["kernel"]).cpu()})
+        q[f"up{i}_conv"] = {**_tree_to(upq, p["weight"].device),
+                            "act_scale": q[f"up{i}_conv"]["act_scale"]}
     return {"qparams": q, "params": static_vars["params"]}
 
 
@@ -250,10 +283,30 @@ def _inv(site: Dict[str, Any]) -> float:
     return float(np.float32(1.0) / np.float32(site["act_scale"]))
 
 
+UP_MODES = ("bf16", "int8_dilated", "int8_phases", "resize_conv_int8")
+
+
+def _up_int8(a: torch.Tensor, kernel_q: torch.Tensor,
+             up_mode: str) -> torch.Tensor:
+    """One int8 up stage on NHWC int8 → int32 ('int8_dilated' and
+    'int8_phases' alike: the phase split)."""
+    if up_mode == "resize_conv_int8":
+        n, h, w, c = a.shape
+        up = a[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
+        return conv2d_int8(up.reshape(n, 2 * h, 2 * w, c), kernel_q, 1, 1)
+    return conv_transpose_s2_phases(a, kernel_q)
+
+
 def fused_int8_apply(variables: Dict[str, Any], x: torch.Tensor, *,
-                     n_blocks: int = 9, device=None) -> torch.Tensor:
+                     n_blocks: int = 9, up_mode: str = "bf16",
+                     device=None) -> torch.Tensor:
     """Int8 ResnetGenerator forward with fused epilogues; NCHW in, NCHW bf16
-    out. Every IN site (23 for 9 blocks) is one epilogue kernel launch."""
+    out. Every IN site (23 for 9 blocks) is one epilogue kernel launch.
+    ``up_mode`` ∈ ``UP_MODES`` (module docstring); 'resize_conv_int8' needs
+    the variables of a ``resize_conv`` generator."""
+    if up_mode not in UP_MODES:
+        raise ValueError(f"unknown up_mode [{up_mode}]; expected 'bf16' | "
+                         "'int8_dilated' | 'int8_phases' | 'resize_conv_int8'")
     dev = resolve_device(device)
     variables = _tree_to(variables, dev)
     q = variables["qparams"]
@@ -277,16 +330,23 @@ def fused_int8_apply(variables: Dict[str, Any], x: torch.Tensor, *,
             r = conv2d_int8(a2, b["conv2"]["kernel_q"])
             if i < n_blocks - 1:
                 a, h = ep(r, q[f"block{i + 1}"]["conv1"], residual=h, pad=1)
-            else:
+            elif up_mode == "bf16":
                 _, h = fused_in_epilogue(r, None, residual=h)
+            else:  # up0 is int8: requantize to its scale
+                a, h = ep(r, q["up0_conv"], residual=h)
 
         for i in range(2):
-            p = variables["params"][f"up{i}_conv"]
-            y = _up_bf16(h.permute(0, 3, 1, 2), p)
-            y = (y + p["bias"].to(torch.bfloat16)[:, None, None])
-            y = y.permute(0, 2, 3, 1).contiguous()
-            if i == 0:  # up1 is bf16 too: no requantize between
+            if up_mode == "bf16":
+                p = variables["params"][f"up{i}_conv"]
+                y = _up_bf16(h.permute(0, 3, 1, 2), p)
+                y = (y + p["bias"].to(torch.bfloat16)[:, None, None])
+                y = y.permute(0, 2, 3, 1).contiguous()
+            else:  # IN follows: the bias drops out, as the dequantize does
+                y = _up_int8(a, q[f"up{i}_conv"]["kernel_q"], up_mode)
+            if i == 0 and up_mode == "bf16":  # up1 is bf16 too
                 _, h = fused_in_epilogue(y, None, relu=True)
+            elif i == 0:
+                a, _ = ep(y, q["up1_conv"], relu=True)
             else:  # conv_out is int8: quantize and bake its reflect-pad 3
                 a, _ = ep(y, q["conv_out"], relu=True, pad=3)
         y = conv2d_int8(a, q["conv_out"]["kernel_q"])

@@ -10,6 +10,9 @@ patch matrix gets zero columns and the weight zero rows/columns as needed
 
 On the CPU it is an fp64 ``F.conv2d`` on the integer values, rounded back to
 int32: exact, since |sum| ≤ 127²·7·7·256 < 2⁵³.
+
+``padding`` is an int or ``((top, bottom), (left, right))``: zeros either
+way.
 """
 
 from __future__ import annotations
@@ -22,21 +25,27 @@ def _round8(v: int) -> int:
     return (v + 7) // 8 * 8
 
 
+def _zero_pad(x: torch.Tensor, padding) -> torch.Tensor:
+    """Zero-pad NHWC ``x`` by an int or ((top, bottom), (left, right))."""
+    if isinstance(padding, int):
+        padding = ((padding, padding), (padding, padding))
+    (t, b), (l, r) = padding
+    return F.pad(x, (0, 0, l, r, t, b)) if t or b or l or r else x
+
+
 def plain_conv2d_int8(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
-                      padding: int = 0) -> torch.Tensor:
+                      padding=0) -> torch.Tensor:
     """Exact reference: fp64 conv on the integer values."""
-    y = F.conv2d(x.permute(0, 3, 1, 2).double(),
-                 kernel.permute(3, 2, 0, 1).double(), stride=stride,
-                 padding=padding)
+    y = F.conv2d(_zero_pad(x, padding).permute(0, 3, 1, 2).double(),
+                 kernel.permute(3, 2, 0, 1).double(), stride=stride)
     return y.round().to(torch.int32).permute(0, 2, 3, 1).contiguous()
 
 
 def im2col_conv2d_int8(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
-                       padding: int = 0) -> torch.Tensor:
+                       padding=0) -> torch.Tensor:
     """im2col + ``torch._int_mm``; patch columns ordered (kh, kw, cin) to
     match the HWIO weight flattened to (KH·KW·Cin, Cout)."""
-    if padding:
-        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    x = _zero_pad(x, padding)
     n, h, w, cin = x.shape
     kh, kw, _, cout = kernel.shape
     ho = (h - kh) // stride + 1
@@ -57,7 +66,7 @@ def im2col_conv2d_int8(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
 
 
 def conv2d_int8(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
-                padding: int = 0) -> torch.Tensor:
+                padding=0) -> torch.Tensor:
     """int8 NHWC ``x`` ⊛ int8 HWIO ``kernel`` → int32 NHWC, zero ``padding``."""
     if x.dtype != torch.int8 or kernel.dtype != torch.int8:
         raise TypeError("conv2d_int8 takes int8 activations and weights")
@@ -66,3 +75,4 @@ def conv2d_int8(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
     if x.device.type == "cpu":
         return plain_conv2d_int8(x, kernel, stride, padding)
     return im2col_conv2d_int8(x, kernel, stride, padding).contiguous()
+

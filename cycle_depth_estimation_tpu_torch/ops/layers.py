@@ -1,18 +1,24 @@
-"""Layers of the port's generators (NCHW), counterparts of the JAX package's
+"""Layers of the port's networks (NCHW), counterparts of the JAX package's
 ``ops/layers.py``.
 
 Convolutions are ``nn.Conv2d`` / ``nn.ConvTranspose2d``: the JAX package
 leaves them to XLA outside any Pallas kernel, and cuDNN takes their place
-here. The TPU layout tricks of the JAX module (``conv3x3_reflect``,
-``_conv_transpose_s2_phases``) have no counterpart.
+here. ``conv3x3_reflect`` of the JAX module has no counterpart.
+``conv_transpose_s2_phases`` is the JAX ``_conv_transpose_s2_phases``: a
+stride-2 transposed conv as four dense convs and an interleave, here on int8
+through ``conv2d_int8`` (the ``int8_dilated`` and ``int8_phases`` up modes
+of the int8 serving path).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .int8_conv import conv2d_int8
 from .kernels.instance_norm import instance_norm
 
 
@@ -33,10 +39,48 @@ class InstanceNorm(nn.Module):
         return instance_norm(x, self.eps)
 
 
-def Norm(kind: str) -> nn.Module:
-    """Norm-layer factory: 'instance' | 'none' (the reference's strings)."""
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d(affine, eps 1e-5, momentum 0.1): the JAX package's
+    ``Norm('batch')`` (flax ``nn.BatchNorm``, momentum 0.9). Train mode
+    normalizes with the batch statistics and updates the running ones; eval
+    mode normalizes with the running ones. State-dict keys are torch's
+    (``weight``, ``bias``, ``running_mean``, ``running_var``,
+    ``num_batches_tracked``); a reference ``.pth`` from before torch 0.4.1
+    lacks the last and loads all the same (``nn.BatchNorm2d``'s rule).
+
+    flax moves the running variance toward the *biased* batch variance,
+    torch toward the unbiased one (× n/(n−1), n = N·H·W). The train-mode
+    forward lets torch update the buffers in its one pass, then takes the
+    excess back out: with ``new = (1−m)·old + m·v·n/(n−1)``, the flax value
+    ``(1−m)·old + m·v`` is ``new − (new − (1−m)·old)/n``.
+    """
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        old = self.running_var.clone()
+        y = super().forward(x)
+        n = x.numel() // x.shape[1]
+        # through .data: the op saved the buffer for its backward, which
+        # reads it in eval mode only, and an in-place change of the buffer
+        # itself would fail autograd's version check
+        rv = self.running_var.data
+        rv.sub_((rv - (1 - self.momentum) * old) / n)
+        return y
+
+
+def Norm(kind: str, num_features: Optional[int] = None) -> nn.Module:
+    """Norm-layer factory: 'instance' | 'batch' | 'none' (the reference's
+    strings). 'batch' needs ``num_features``."""
     if kind == "instance":
         return InstanceNorm()
+    if kind == "batch":
+        if num_features is None:
+            raise ValueError("Norm('batch') needs num_features")
+        return BatchNorm(num_features)
     if kind == "none":
         return nn.Identity()
     raise NotImplementedError(f"normalization layer [{kind}] is not found")
@@ -46,3 +90,62 @@ def norm_uses_bias(kind: str) -> bool:
     """The reference's conv-bias rule: a conv before a norm has a bias
     unless the norm is BatchNorm (reference models/networks.py:152-155)."""
     return kind != "batch"
+
+
+def _phase_taps(k: int, pad_lo: int, d: int):
+    """Kernel tap indices and conv padding for output phase ``d`` of a
+    stride-2 transposed conv expressed as a dense conv over the input.
+
+    out[2i+d] = Σ_{h ∈ taps} K[h] · x[i + (d − pad_lo + h)//2]; taps are the
+    h with (d − pad_lo + h) even. Returns (h_start, n_taps, (pad_l, pad_r)).
+    """
+    taps = [h for h in range(k) if (d - pad_lo + h) % 2 == 0]
+    offsets = [(d - pad_lo + h) // 2 for h in taps]
+    return taps[0], len(taps), (max(0, -offsets[0]), max(0, offsets[-1]))
+
+
+def _phases_are_uniform(k: int, p: int) -> bool:
+    """True when every stride-2 output phase maps to a dense conv whose
+    offset range straddles 0 (k3/p1 and k4/p1 do)."""
+    pad_lo = k - 1 - p
+    for d in range(2):
+        taps = [h for h in range(k) if (d - pad_lo + h) % 2 == 0]
+        if not taps:
+            return False
+        offs = [(d - pad_lo + h) // 2 for h in taps]
+        if offs[0] > 0 or offs[-1] < 0:
+            return False
+    return True
+
+
+def conv_transpose_s2_phases(x: torch.Tensor, kernel: torch.Tensor,
+                             k: Tuple[int, int] = (3, 3),
+                             p: Tuple[int, int] = (1, 1),
+                             op: Tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """Exact stride-2 ConvTranspose2d(k, s2, p, op) on int8: four per-phase
+    dense int8 convs (int32 accumulation) and an interleave.
+
+    ``x`` is int8 NHWC, ``kernel`` the equivalent regular conv's int8 HWIO
+    kernel (the JAX ``ConvTranspose`` layout: torch's weight flipped
+    spatially, in and out swapped). Returns int32 NHWC.
+    """
+    kh, kw = k
+    if not (_phases_are_uniform(kh, p[0]) and _phases_are_uniform(kw, p[1])
+            and kh + op[0] - 2 * p[0] <= 2 and kw + op[1] - 2 * p[1] <= 2):
+        raise ValueError(f"no uniform phase split for k={k}, p={p}, op={op}")
+    n, h, w, _ = x.shape
+    out_h = (h - 1) * 2 - 2 * p[0] + kh + op[0]
+    out_w = (w - 1) * 2 - 2 * p[1] + kw + op[1]
+    phases = []
+    for dh in range(2):
+        h0, nth, pad_h = _phase_taps(kh, kh - 1 - p[0], dh)
+        row = []
+        for dw in range(2):
+            w0, ntw, pad_w = _phase_taps(kw, kw - 1 - p[1], dw)
+            sub = kernel[h0::2][:nth, w0::2][:, :ntw].contiguous()
+            row.append(conv2d_int8(x, sub, 1, (pad_h, pad_w)))
+        phases.append(row)
+    # out[2i + dh, 2j + dw] = phases[dh][dw][i, j]: (N, H, 2, W, 2, C)
+    ph = torch.stack([torch.stack(r, dim=3) for r in phases], dim=2)
+    out = ph.reshape(n, 2 * ph.shape[1], 2 * ph.shape[3], ph.shape[-1])
+    return out[:, :out_h, :out_w]

@@ -5,6 +5,10 @@ reference train.py:10-81)::
         --dataroot <dir with trainA/ trainB/ [testA/ testB/]> \\
         [--niter N --niter_decay M --batch_size B] [--continue_train] \\
         [--device cuda|cpu]
+    python -m cycle_depth_estimation_tpu_torch.train --model pix2pix \\
+        --dataroot <dir with train/ [test/] of side-by-side AB images> \\
+        [--direction BtoA] [--num_threads N | --worker_procs N] \\
+        [--device_aug]
 
 Epochs ``epoch_count … niter + niter_decay``: a train step per batch, with
 losses printed and logged every ``print_freq`` images, visuals saved every
@@ -14,6 +18,9 @@ those exist (their mean loss is the ``plateau`` LR policy's metric), the
 checkpoints every ``save_epoch_freq`` epochs, the HTML page, and the LR
 step. ``--continue_train`` resumes from the ``--epoch`` checkpoint.
 Checkpoints, logs and the page go to ``<checkpoints_dir>/<name>/``.
+Batches reach the device through ``prefetch_to_device`` (pinned memory, two
+batches ahead); with ``--device_aug`` the crop, flip and normalize run
+there. Dropout draws from torch's generator, seeded with ``seed + 1``.
 """
 
 from __future__ import annotations
@@ -23,16 +30,27 @@ import time
 
 
 def main(argv=None):
-    import numpy as np
+    import torch
 
     from .config import parse_args, print_options
     from .data import create_dataloader
+    from .data.device_transforms import wrap_for_config
+    from .data.loader import prefetch_to_device
     from .device import resolve_device
     from .models import create_model
     from .utils.visualizer import Visualizer
 
     cfg = parse_args(argv, is_train=True)
-    resolve_device(cfg.device)
+    device = resolve_device(cfg.device)
+    torch.manual_seed(cfg.seed + 1)
+
+    def to_device(loader, aug_cfg, seed):
+        batches = prefetch_to_device(loader, device)
+        if cfg.device_aug:
+            batches = wrap_for_config(
+                batches, aug_cfg, torch.Generator(device).manual_seed(seed))
+        return batches
+
     message = print_options(cfg)
     print(message)
     os.makedirs(cfg.expr_dir(), exist_ok=True)
@@ -53,13 +71,27 @@ def main(argv=None):
         state = model.load_networks(state, cfg.epoch)
     visualizer = Visualizer(cfg)
 
+    try:
+        return _train(cfg, model, state, loader_train, loader_test,
+                      visualizer, to_device)
+    finally:
+        for loader in (loader_train, loader_test):
+            if loader is not None:
+                loader.close()
+
+
+def _train(cfg, model, state, loader_train, loader_test, visualizer,
+           to_device):
+    import numpy as np
+
     total_steps = 0
     eval_metric = None  # the plateau LR policy's metric
     for epoch in range(cfg.epoch_count, cfg.niter + cfg.niter_decay + 1):
         epoch_start = time.time()
         loader_train.set_epoch(epoch)
         iter_start = time.time()
-        for batch in loader_train:
+        for batch in to_device(loader_train, cfg,
+                               (cfg.seed + 2) * 1_000_003 + epoch):
             t_data = time.time() - iter_start
             state, losses = model.train_step(state, batch)
             total_steps += cfg.batch_size
@@ -83,7 +115,8 @@ def main(argv=None):
 
         if loader_test is not None:
             eval_losses = []
-            for i, batch in enumerate(loader_test):
+            for i, batch in enumerate(to_device(
+                    loader_test, cfg.replace(is_train=False), cfg.seed + 3)):
                 if i >= 50:
                     break
                 m, _ = model.eval_step(state, batch)

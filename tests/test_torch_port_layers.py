@@ -150,8 +150,10 @@ def test_define_G_names():
     for name, n in (("resnet_9blocks", 9), ("resnet_6blocks", 6),
                     ("resnet_3blocks", 3), ("3blocks", 3)):
         assert define_G(3, 3, 4, name).n_blocks == n
+    for name, n in (("unet_128", 7), ("unet_256", 8)):
+        assert define_G(3, 3, 4, name, norm="batch").num_downs == n
     with pytest.raises(NotImplementedError):
-        define_G(3, 3, 4, "unet_256")
+        define_G(3, 3, 4, "unet_512")
 
 
 def test_bf16_forward_is_finite():

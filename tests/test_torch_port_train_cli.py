@@ -152,12 +152,12 @@ def test_train_cli_defaults_to_cuda_and_never_falls_back(root, tmp_path,
 
 
 @pytest.mark.parametrize("flag", ["--remat", "--parallel", "--int8",
-                                  "--device_aug", "--mesh_shape", "--zero",
+                                  "--prefetch_depth", "--mesh_shape", "--zero",
                                   "--kitti_gt_dir", "--adam_eps"])
 def test_flags_of_later_slices_are_rejected(flag):
     with pytest.raises(SystemExit):
-        parse_args([flag, "1"] if flag not in ("--remat", "--int8",
-                                               "--device_aug") else [flag])
+        parse_args([flag, "1"] if flag not in ("--remat", "--int8")
+                   else [flag])
 
 
 def test_reference_flag_aliases():
