@@ -63,14 +63,42 @@ Phases, in order; any failure raises and the script exits nonzero:
    card), again in a process of its own, beside phase 10; after phase 11,
    the test CLI with ``--model pix2pix`` on the checkpoint.
 
+13. bf16 training at full width: one seeded CycleGAN step (batch 8, 256²,
+   9 blocks, ngf 64) and one pix2pix step (unet_256) in bf16 against the
+   fp32 step from the same init (losses within 5e-2 relative); both
+   InstanceNorm kernels launched on bf16 at their counts (CycleGAN; the
+   pix2pix nets use BatchNorm); img/s and peak memory beside fp32.
+14. ``--remat``: the fp32 CycleGAN step with and without it from one seed,
+   cuDNN deterministic: losses, parameters and generator gradients agree;
+   peak memory of each; 330 forward and 192 backward InstanceNorm
+   launches a step with it.
+15. SegCycle at full width (the JAX defaults: two 9-block generators ngf
+   64, two 3-layer PatchGANs ndf 64, the BatchNorm U-Net encoder/decoder
+   pairs ngf 64, 22/28 classes), batch 8, 192×640, fp32 with TF32 off:
+   every InstanceNorm call of a step, forward and backward, held against
+   the plain version on its own inputs (planes 192×640 down to 23×79); one
+   step through the kernels against one through the plain versions, by
+   phase 8's yardstick; 156 + 156 launches; steps/s, img/s, peak memory, a
+   profiled step; then one bf16 step.
+16. T2Net (``--model seg``) at full width (192×640, batch 8, the 9-block
+   translator at ngf 64, ``--norm instance``): every InstanceNorm call held
+   against the plain version, the task net's 1536-channel 12×40 planes
+   among them; 65 + 42 launches; the frozen translator; img/s. Beside
+   phases 15 and 16: the train CLI ``--model seg_cycle --dataset_mode
+   synthia`` on synthesized SYNTHIA-like PNGs (RGB, 8-bit labels, 16-bit
+   depth, listed in .txt files) at ngf 16, in a process of its own, then
+   its resume: checkpoints of the 8 nets and colorized label visuals.
+
 Every CLI process runs in a session of its own: it fails the phase if a
 process of that session (a loader worker, the forkserver, Python's resource
 tracker) still runs 10 s after the CLI ended. The script fails, too, if a
 process it started still runs when it is about to print its result.
 
 Launch counts are zeroed just before phase 3 and read after phase 7 (the
-serving path), before phase 8 and after phase 9 (the training path), and
-before phase 10 and after phase 12 (the pix2pix path). The last three lines
+serving path), before phase 8 and after phase 9 (the training path),
+before phase 10 and after phase 12 (the pix2pix path), and before and
+after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net).
+The last three lines
 are a JSON object with every kernel's numbers, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
@@ -131,6 +159,26 @@ TRAIN_IN_SHAPES = {
 }
 TRAIN_PER_STEP = sum(TRAIN_IN_SHAPES.values())
 TRAIN_STEPS_TIMED = 3
+# --remat runs the six generator forwards again in backward
+REMAT_PER_STEP = TRAIN_PER_STEP + G_PASSES * sum(IN_SHAPES.values())
+
+# SegCycle at the synthia size (192×640): the six generator passes, 2 D
+# passes in the G loss and 4 in its one D update (2 nets × real and fake)
+SEG_H, SEG_W = 192, 640
+SEG_G_SHAPES = {(BATCH, NGF, SEG_H, SEG_W): 2,
+                (BATCH, 2 * NGF, SEG_H // 2, SEG_W // 2): 2,
+                (BATCH, 4 * NGF, SEG_H // 4, SEG_W // 4): 2 * N_BLOCKS + 1}
+SEG_D_PASSES = 2 + 2 * 2
+SEG_IN_SHAPES = {
+    **{shape: G_PASSES * calls for shape, calls in SEG_G_SHAPES.items()},
+    (BATCH, 2 * NDF, SEG_H // 4, SEG_W // 4): SEG_D_PASSES,
+    (BATCH, 4 * NDF, SEG_H // 8, SEG_W // 8): SEG_D_PASSES,
+    (BATCH, 8 * NDF, SEG_H // 8 - 1, SEG_W // 8 - 1): SEG_D_PASSES,
+}
+SEG_PER_STEP = sum(SEG_IN_SHAPES.values())
+# T2Net with --norm instance: the frozen translator's 23 forward norms, and
+# 21 norms of the task net (trunk 15, head 6) in each of its 2 forwards
+T2NET_FWD, T2NET_BWD = sum(SEG_G_SHAPES.values()) + 2 * 21, 2 * 21
 
 # fused_int8_apply epilogue sites: name → (NHWC shape, input dtype,
 # quantize?, kwargs, calls per forward)
@@ -970,7 +1018,7 @@ def train_config(**kw):
         net_g=f"resnet_{N_BLOCKS}blocks", device="cuda", **kw))
 
 
-def compare_params(before, kernel_nets, plain_nets, cfg):
+def compare_params(before, kernel_nets, plain_nets, cfg, d_steps=None):
     """Parameters after one step through the kernels against one through
     the plain versions, and the generators' gradients of that step (both
     paths start from the same parameters there). Adam's first step moves a
@@ -987,8 +1035,9 @@ def compare_params(before, kernel_nets, plain_nets, cfg):
 
     out = dict(total=0, past=0, flipped=0, noise_total=0, noise_past=0,
                worst_within=0.0, max_g_past=0.0, g_rel=0.0, g_rel_by={})
+    d_steps = cfg.d_steps_per_g if d_steps is None else d_steps
     for name, net in kernel_nets.items():
-        steps = 1 if name.startswith("G") else cfg.d_steps_per_g
+        steps = d_steps if name.startswith("D") else 1
         limit = 2 * cfg.lr * steps + 1e-5
         noise = biases_before_norm(net)
         plain = dict(plain_nets[name].named_parameters())
@@ -1012,7 +1061,7 @@ def compare_params(before, kernel_nets, plain_nets, cfg):
             out["flipped"] += int(flip.sum())
             out["worst_within"] = max(out["worst_within"],
                                       float(torch.where(past, 0, diff).max()))
-            if name.startswith("G"):
+            if not name.startswith("D"):  # the generator side
                 g_k, g_p = param.grad, plain[key].grad
                 rel = float((g_k - g_p).norm() / g_p.norm())
                 out["g_rel_by"][f"{name}.{key}"] = rel
@@ -1023,17 +1072,13 @@ def compare_params(before, kernel_nets, plain_nets, cfg):
     return out
 
 
-def phase_train_step():
+def plain_instance_norm_fn():
+    """``layers.instance_norm`` through the plain versions, forward and
+    backward (no kernel launch)."""
     import torch
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
-    from cycle_depth_estimation_tpu_torch.models import create_model
-    from cycle_depth_estimation_tpu_torch.models import quantization as q
-    from cycle_depth_estimation_tpu_torch.ops import layers
     from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
-        instance_norm, instance_norm_backward, plain_instance_norm,
-        plain_instance_norm_backward)
+        plain_instance_norm, plain_instance_norm_backward)
 
     class PlainInstanceNorm(torch.autograd.Function):
         @staticmethod
@@ -1046,6 +1091,19 @@ def phase_train_step():
         def backward(ctx, dy):
             (x,) = ctx.saved_tensors
             return plain_instance_norm_backward(x, dy, ctx.eps), None
+
+    return lambda x, eps=1e-5: PlainInstanceNorm.apply(x, eps)
+
+
+def phase_train_step():
+    import torch
+    import torch.nn.functional as F
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.models import quantization as q
+    from cycle_depth_estimation_tpu_torch.ops import layers
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm, instance_norm_backward)
 
     cfg = train_config()
     model = create_model(cfg)
@@ -1063,7 +1121,7 @@ def phase_train_step():
     torch.backends.cudnn.deterministic = True
     before = {k: {n: v.clone() for n, v in net.state_dict().items()}
               for k, net in model.init_state().nets.items()}
-    plain_in = lambda x, eps=1e-5: PlainInstanceNorm.apply(x, eps)  # noqa: E731
+    plain_in = plain_instance_norm_fn()
     runs = {}
     for path, patch, expect in (
             ("kernel", None, TRAIN_PER_STEP),
@@ -1137,37 +1195,7 @@ def phase_train_step():
         f"img/s; peak memory {peak / 2 ** 30:.2f} GiB; with cuDNN TF32: "
         f"{dt32 * 1e3:.1f} ms/step = {BATCH / dt32:.1f} img/s")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        model.train_step(state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy <= 0:
-        raise AssertionError("profile of the train step: no device time")
-    log(f"phase 8: profiled train step: wall {wall:.1f} ms, device busy "
-        f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"phase 8:   {e.self_device_time_total / 1e3 / busy:6.1%} "
-            f"{e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
-            f"{e.key[:90]}")
-    elems = sum(calls * math.prod(shape)
-                for shape, calls in TRAIN_IN_SHAPES.items())
-    stats = 2 * 4 * sum(calls * shape[0] * shape[1]
-                        for shape, calls in TRAIN_IN_SHAPES.items())
-    for kname, nbytes, flops in (
-            ("in_fwd", 2 * 4 * elems + stats, IN_FLOPS_PER_ELEM * elems),
-            ("in_bwd", 3 * 4 * elems + stats, IN_BWD_FLOPS_PER_ELEM * elems)):
-        ms = sum(e.self_device_time_total for e in kernels
-                 if kname in e.key) / 1e3
-        calls = sum(e.count for e in kernels if kname in e.key)
-        t_b, _ = bound(nbytes, flops)
-        log(f"phase 8:   {kname}: {ms:.3f} ms in {calls} calls per step "
-            f"({ms / busy:.1%} of busy), bound {t_b:.3f} ms "
-            f"({ms / t_b:.2f}x)")
+    profile_step("phase 8", model, state, batch, TRAIN_IN_SHAPES)
     # Checked last, so that a failing run still prints every number above.
     # Limits: 1e-4 relative on each loss and on the generator gradients, and
     # on the share of sign-flipped updates; or, where the library path lands
@@ -1244,7 +1272,6 @@ def phase_unet_instance_norm(gen):
     import torch
 
     from cycle_depth_estimation_tpu_torch.models.networks import define_G
-    from cycle_depth_estimation_tpu_torch.ops import layers
     from cycle_depth_estimation_tpu_torch.ops.kernels import (
         instance_norm as kin)
 
@@ -1252,45 +1279,17 @@ def phase_unet_instance_norm(gen):
                  generator=torch.Generator().manual_seed(1)).cuda().train()
     x = torch.randn(BATCH, 3, SIZE, SIZE, generator=gen, device="cuda")
     w = torch.randn(BATCH, 3, SIZE, SIZE, generator=gen, device="cuda")
-    fwd, bwd = [], []
-    real_bwd = kin._InstanceNormFn.backward
-
-    def recording(v, eps=1e-5):
-        y = kin.instance_norm(v, eps)
-        fwd.append((v.detach(), y.detach().clone()))  # ReLUs work in place
-        return y
-
-    def recording_bwd(ctx, dy):
-        dx, *rest = real_bwd(ctx, dy)
-        x_saved, *stats = ctx.saved_tensors
-        bwd.append((x_saved.detach(), dy, tuple(stats), dx))
-        return (dx, *rest)
-
+    report = {}
     n_in = 2 * (8 - 2) + 1  # down norms of levels 1-6, up norms of 1-7
-    with mock.patch.object(layers, "instance_norm", recording), \
-            mock.patch.object(kin._InstanceNormFn, "backward",
-                              staticmethod(recording_bwd)), \
+    with checked_instance_norm(report), \
             counted(kin.instance_norm, n_in, "UNet forward"), \
             counted(kin.instance_norm_backward, n_in, "UNet backward"):
         (g(x) * w).sum().backward()
     torch.cuda.synchronize()
-    planes, max_f, max_b = {}, 0.0, 0.0
-    for v, y in fwd:
-        want = kin.plain_instance_norm(v)
-        err = float((y - want).abs().max())
-        planes[tuple(v.shape)] = planes.get(tuple(v.shape), 0) + 1
-        if err > 1e-4:
-            raise AssertionError(f"UNet in_fwd {tuple(v.shape)}: {err}")
-        max_f = max(max_f, err)
-    for v, dy, stats, dx in bwd:
-        want = kin.plain_instance_norm_backward(v, dy, stats=stats or None)
-        err = float((dx - want).abs().max())
-        scale = float(want.abs().max())
-        if err > 1e-4 * max(1.0, scale):
-            raise AssertionError(f"UNet in_bwd {tuple(v.shape)}: {err} "
-                                 f"(max |dx| {scale})")
-        max_b = max(max_b, err / max(1.0, scale))
-    sides = sorted({s[2] for s in planes}, reverse=True)
+    log_report("phase 10", report)
+    sides = sorted({shape[2] for _, shape, _ in report}, reverse=True)
+    if len(sides) != 7:  # 128² down to 2²
+        raise AssertionError(f"UNet planes {sorted(report)}")
     # a plane of one element: variance 0, output 0, gradient 0 (not a UNet
     # plane at 256²: its innermost level has no norm)
     one = torch.randn(BATCH, 8 * NGF, 1, 1, generator=gen, device="cuda")
@@ -1303,12 +1302,10 @@ def phase_unet_instance_norm(gen):
     if bool(y1.abs().max() > 0) or bool(dx1.abs().max() > 0):
         raise AssertionError("instance_norm of a 1x1 plane is not 0")
     log(f"phase 10 ok: UNet-256 --norm instance bs{BATCH} {SIZE}^2 forward "
-        f"and backward: {len(fwd)} in_fwd and {len(bwd)} in_bwd launches "
-        f"over planes {sides[0]}^2 .. {sides[-1]}^2 "
-        f"({len(planes)} shapes), each held against the plain version on "
-        f"its own inputs: in_fwd max abs err {max_f:.3g}, in_bwd max err "
-        f"{max_b:.3g} (relative to max(1, max |dx|)); the 1^2 plane gives 0")
-    del g, fwd, bwd
+        f"and backward: {n_in} in_fwd and {n_in} in_bwd launches over planes "
+        f"{sides[0]}^2 .. {sides[-1]}^2, each held against the plain version "
+        f"on its own inputs; the 1^2 plane gives 0")
+    del g
 
 
 def pix2pix_config(**kw):
@@ -1322,7 +1319,6 @@ def pix2pix_config(**kw):
 
 def phase_pix2pix_step():
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from cycle_depth_estimation_tpu_torch.models import create_model
     from cycle_depth_estimation_tpu_torch.models import quantization as q
@@ -1386,23 +1382,7 @@ def phase_pix2pix_step():
         f"{dt * 1e3:.1f} ms/step = {1 / dt:.3f} steps/s = {BATCH / dt:.1f} "
         f"img/s; peak memory {peak / 2 ** 30:.2f} GiB; with cuDNN TF32: "
         f"{dt32 * 1e3:.1f} ms/step = {BATCH / dt32:.1f} img/s")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        model.train_step(state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy <= 0:
-        raise AssertionError("profile of the pix2pix step: no device time")
-    log(f"phase 11: profiled pix2pix step: wall {wall:.1f} ms, device busy "
-        f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"phase 11:   {e.self_device_time_total / 1e3 / busy:6.1%} "
-            f"{e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
-            f"{e.key[:90]}")
+    profile_step("phase 11", model, state, batch)
     log("phase 11 ok")
     return BATCH / dt
 
@@ -1489,6 +1469,552 @@ def phase_pix2pix_cli(run):
         f"--device_aug ({run['resume_seconds']:.1f} s, beside phase 10) and "
         f"left no process running; the test CLI --model pix2pix wrote "
         f"{len(images)} images from the checkpoint")
+
+
+@contextmanager
+def checked_instance_norm(report):
+    """Hold every InstanceNorm kernel call inside, forward and backward,
+    against its plain version on the inputs the path gave it, as it
+    happens; ``report[(kind, shape, dtype)]`` gets [calls, largest error]
+    (forward: abs; backward: abs over the call's largest plain |dx|, taken
+    up to a power of two). Raises past the limits: fp32 1e-4, bf16 2 ulps
+    of the plain result, on those scales. A train step's dx is ~1e-6, so
+    an absolute limit would hold nothing there; a power of two scales a
+    bf16 value and its ulp exactly."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.ops import layers
+    from cycle_depth_estimation_tpu_torch.ops.kernels import (
+        instance_norm as kin)
+
+    real_bwd = kin._InstanceNormFn.backward
+
+    def check(kind, shape, got, want, scale=1.0):
+        dtype = got.dtype
+        got, want = got.detach().float() / scale, want.detach().float() / scale
+        err = (got - want).abs()
+        if dtype == torch.bfloat16:
+            ok = bool((err <= 2 * bf16_ulp(want)).all())
+        else:
+            ok = float(err.max()) <= 1e-4
+        key = (kind, tuple(shape), str(dtype)[6:])
+        calls, worst = report.get(key, (0, 0.0))
+        report[key] = (calls + 1, max(worst, float(err.max())))
+        if not ok:
+            raise AssertionError(f"{kind} {tuple(shape)} {dtype}: kernel vs "
+                                 f"plain max err {float(err.max())} (scale "
+                                 f"{scale})")
+
+    def fwd(v, eps=1e-5):
+        y = kin.instance_norm(v, eps)
+        check("in_fwd", v.shape, y, kin.plain_instance_norm(v, eps))
+        return y
+
+    def bwd(ctx, dy):
+        dx, *rest = real_bwd(ctx, dy)
+        x, *stats = ctx.saved_tensors
+        want = kin.plain_instance_norm_backward(x, dy, ctx.eps,
+                                                tuple(stats) or None)
+        top = float(want.float().abs().max())
+        check("in_bwd", x.shape, dx, want,
+              2.0 ** math.ceil(math.log2(top)) if top > 0 else 1.0)
+        return (dx, *rest)
+
+    with mock.patch.object(layers, "instance_norm", fwd), \
+            mock.patch.object(kin._InstanceNormFn, "backward",
+                              staticmethod(bwd)):
+        yield report
+
+
+def log_report(tag, report):
+    for (kind, shape, dt), (calls, worst) in sorted(report.items()):
+        log(f"{tag}:   {kind} {shape} {dt}: {calls} calls, kernel vs plain "
+            f"max err {worst:.3g}")
+
+
+def timed_steps(model, state, batch, n=TRAIN_STEPS_TIMED):
+    """One warm-up step, then ``n`` timed: (state, s/step, peak bytes)."""
+    import torch
+
+    state, _ = model.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(n):
+        state, _ = model.train_step(state, batch)
+    torch.cuda.synchronize()
+    return (state, (time.perf_counter() - t) / n,
+            torch.cuda.max_memory_allocated())
+
+
+def profile_step(tag, model, state, batch, shapes=None):
+    """One profiled step: idle share, the top kernels, and, given
+    ``shapes`` {plane: calls}, the InstanceNorm kernels' ms beside their
+    bounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        raise AssertionError(f"profile of the {tag} step: no device time")
+    log(f"{tag}: profiled step: wall {wall:.1f} ms, device busy {busy:.1f} "
+        f"ms, idle share {max(0.0, 1 - busy / wall):.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"{tag}:   {e.self_device_time_total / 1e3 / busy:6.1%} "
+            f"{e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
+            f"{e.key[:90]}")
+    if not shapes:
+        return
+    elems = sum(c * math.prod(sh) for sh, c in shapes.items())
+    stats = 2 * 4 * sum(c * sh[0] * sh[1] for sh, c in shapes.items())
+    for kname, nbytes, flops in (
+            ("in_fwd", 2 * 4 * elems + stats, IN_FLOPS_PER_ELEM * elems),
+            ("in_bwd", 3 * 4 * elems + stats, IN_BWD_FLOPS_PER_ELEM * elems)):
+        ms = sum(e.self_device_time_total for e in kernels
+                 if kname in e.key) / 1e3
+        calls = sum(e.count for e in kernels if kname in e.key)
+        t_b, _ = bound(nbytes, flops)
+        log(f"{tag}:   {kname}: {ms:.3f} ms in {calls} calls per step "
+            f"({ms / busy:.1%} of busy), bound {t_b:.3f} ms "
+            f"({ms / t_b:.2f}x)")
+
+
+def rel_loss_diffs(m, ref):
+    return {k: abs(v - ref[k]) / max(abs(ref[k]), 1e-12) for k, v in m.items()}
+
+
+BF16_LOSS_REL = 5e-2  # a bf16 step's losses against the fp32 step's
+
+
+def phase_bf16_training():
+    """Phase 13: one seeded bf16 step of CycleGAN and of pix2pix at full
+    width against the fp32 step from the same init, each InstanceNorm call
+    of both first steps held against its plain version on the step's own
+    inputs; the InstanceNorm kernels on bf16 at their counts and planes;
+    img/s and peak memory beside fp32."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.models import quantization as q
+    from cycle_depth_estimation_tpu_torch.ops.kernels import (
+        instance_norm as kin)
+
+    img = lambda seed: torch.from_numpy(  # noqa: E731
+        q.synthetic_calibration_batch(seed, BATCH, SIZE)).cuda()
+    models = (("cycle_gan", train_config, TRAIN_PER_STEP,
+               {"img_source": img(4), "img_target": img(5)}),
+              ("pix2pix", pix2pix_config, 0, {"A": img(6), "B": img(7)}))
+    report = {}
+    summary = {}
+    for name, config, n_in, batch in models:
+        runs = {}
+        for dtype in ("float32", "bfloat16"):
+            model = create_model(config(dtype=dtype))
+            torch.manual_seed(0)
+            state = model.init_state()
+            with checked_instance_norm(report), \
+                    counted(kin.instance_norm, n_in, f"{name} {dtype} step"), \
+                    counted(kin.instance_norm_backward, n_in,
+                            f"{name} {dtype} step backward"):
+                state, m = model.train_step(state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{name} {dtype} step losses: {m}")
+            state, dt, peak = timed_steps(model, state, batch)
+            runs[dtype] = (m, dt, peak)
+            del model, state
+            torch.cuda.empty_cache()
+        (m32, dt32, pk32), (m16, dt16, pk16) = runs["float32"], runs["bfloat16"]
+        rel = rel_loss_diffs(m16, m32)
+        log(f"phase 13: {name} bs{BATCH} {SIZE}^2: first-step losses bf16 "
+            f"{m16}; relative to fp32: "
+            + " ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+        log(f"phase 13: {name}: bf16 {dt16 * 1e3:.1f} ms/step = "
+            f"{BATCH / dt16:.1f} img/s, peak {pk16 / 2 ** 30:.2f} GiB; fp32 "
+            f"(TF32 off) {dt32 * 1e3:.1f} ms/step = {BATCH / dt32:.1f} img/s, "
+            f"peak {pk32 / 2 ** 30:.2f} GiB")
+        over = {k: v for k, v in rel.items() if v > BF16_LOSS_REL}
+        if over:
+            raise AssertionError(f"{name} bf16 vs fp32 losses past "
+                                 f"{BF16_LOSS_REL}: {over}")
+        summary[name] = BATCH / dt16
+    want = {(kind, shape, dt) for kind in ("in_fwd", "in_bwd")
+            for shape in TRAIN_IN_SHAPES for dt in ("float32", "bfloat16")}
+    if set(report) != want:
+        raise AssertionError(f"InstanceNorm calls of the steps: "
+                             f"{sorted(report)}")
+    log_report("phase 13", report)
+    log(f"phase 13 ok: bf16 training: CycleGAN {TRAIN_PER_STEP} in_fwd and "
+        f"in_bwd launches on bf16 a step, pix2pix (BatchNorm) none; img/s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in summary.items()))
+    return summary
+
+
+def phase_remat():
+    """Phase 14: the fp32 CycleGAN step with and without --remat from one
+    seed, cuDNN deterministic: losses and parameters; peak memory, the
+    launch counts, and the step time of each."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.models import quantization as q
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm, instance_norm_backward)
+
+    batch = {"img_source": torch.from_numpy(
+                 q.synthetic_calibration_batch(4, BATCH, SIZE)).cuda(),
+             "img_target": torch.from_numpy(
+                 q.synthetic_calibration_batch(5, BATCH, SIZE)).cuda()}
+    torch.backends.cudnn.deterministic = True
+    runs, before = {}, None
+    for remat in (False, True):
+        cfg = train_config(remat=remat)
+        model = create_model(cfg)
+        torch.manual_seed(0)
+        state = model.init_state()
+        if before is None:
+            before = {k: {n: v.clone() for n, v in net.state_dict().items()}
+                      for k, net in state.nets.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with counted(instance_norm,
+                     REMAT_PER_STEP if remat else TRAIN_PER_STEP,
+                     f"remat={remat} step"), \
+                counted(instance_norm_backward, TRAIN_PER_STEP,
+                        f"remat={remat} step backward"):
+            state, m = model.train_step(state, batch)
+        torch.cuda.synchronize()
+        runs[remat] = (model, state, {k: float(v) for k, v in m.items()},
+                       torch.cuda.max_memory_allocated())
+    torch.backends.cudnn.deterministic = False
+    (_, s0, m0, pk0), (_, s1, m1, pk1) = runs[False], runs[True]
+    c = compare_params(before, s1.nets, s0.nets, cfg)
+    same = all(torch.equal(a, s0.nets[k].state_dict()[n])
+               for k, net in s1.nets.items()
+               for n, a in net.state_dict().items())
+    rel = rel_loss_diffs(m1, m0)
+    log(f"phase 14: --remat vs plain step: relative loss diffs "
+        + " ".join(f"{k} {v:.1e}" for k, v in rel.items())
+        + f"; parameters {'bitwise equal' if same else 'not bitwise equal'}"
+        f", {c['past']} of {c['total']} past 1e-5, {c['flipped']} "
+        f"sign-flipped; generator gradients max relative L2 diff "
+        f"{c['g_rel']:.2e}")
+    times = {}
+    for remat in (False, True):
+        model, state = runs[remat][:2]
+        times[remat] = timed_steps(model, state, batch, 2)[1:]
+    del runs, s0, s1, before
+    torch.cuda.empty_cache()
+    log(f"phase 14: peak memory of the first step: plain {pk0 / 2 ** 30:.2f} "
+        f"GiB, --remat {pk1 / 2 ** 30:.2f} GiB; steady step (TF32 off) plain "
+        f"{times[False][0] * 1e3:.1f} ms (peak {times[False][1] / 2 ** 30:.2f}"
+        f" GiB), --remat {times[True][0] * 1e3:.1f} ms (peak "
+        f"{times[True][1] / 2 ** 30:.2f} GiB); in_fwd launches a step "
+        f"{TRAIN_PER_STEP} -> {REMAT_PER_STEP}, in_bwd {TRAIN_PER_STEP}")
+    # the recompute runs the same kernels on the same inputs: the two steps
+    # agree to rounding of the gradient sums' order (backward adds a
+    # generator's three applications in another order), held to 1e-6
+    # relative in the losses, 1e-5 in the generator gradients, 1e-4 of the
+    # parameters sign-flipped. With cuDNN deterministic the gradients are
+    # 5.11e-6 apart in every run on the H100, the same to three digits
+    if max(rel.values()) > 1e-6 or c["g_rel"] > 1e-5 or \
+            c["flipped"] > 1e-4 * c["total"]:
+        raise AssertionError(f"--remat step differs: losses {rel}, "
+                             f"gradients {c['g_rel']}, flips {c['flipped']}")
+    log("phase 14 ok")
+
+
+def seg_config(**kw):
+    from cycle_depth_estimation_tpu_torch.config import (Config,
+                                                         apply_model_defaults)
+
+    return apply_model_defaults(Config(
+        model="seg_cycle", batch_size=BATCH, ngf=NGF, ndf=NDF,
+        net_g=f"resnet_{N_BLOCKS}blocks", device="cuda", **kw))
+
+
+def domain_batch(gen):
+    """A seeded batch at the synthia size: images in [-1, 1], SYNTHIA (22)
+    and Cityscapes (28) train ids with a block of 255 each."""
+    import torch
+
+    def img():
+        return torch.rand(BATCH, 3, SEG_H, SEG_W, generator=gen,
+                          device="cuda") * 2 - 1
+
+    def lab(n):
+        t = torch.randint(0, n, (BATCH, SEG_H, SEG_W), generator=gen,
+                          device="cuda")
+        t[:, :16, :32] = 255
+        return t
+
+    return {"img_source": img(), "img_target": img(),
+            "lab_source": lab(22), "lab_target": lab(28)}
+
+
+def phase_seg_cycle(gen, cli):
+    """Phase 15: SegCycle at full width (the JAX defaults), batch 8,
+    192×640, fp32 with TF32 off: both InstanceNorm kernels against their
+    plain versions on the step's own inputs at every plane; one step
+    through the kernels against one through the plain versions and one
+    through F.instance_norm; launches, steps/s, img/s, peak memory, a
+    profiled step; then one bf16 step. ``cli`` (the SegCycle train CLI)
+    runs beside the untimed first part and is ended before the timing."""
+    import torch
+    import torch.nn.functional as F
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.ops import layers
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm, instance_norm_backward)
+
+    cfg = seg_config()
+    if (cfg.dataset_mode, cfg.norm, cfg.no_dropout, cfg.net_d) != (
+            "synthia", "instance", True, "basic"):
+        raise AssertionError(f"seg_cycle defaults: {cfg}")
+    model = create_model(cfg)
+    batch = domain_batch(gen)
+    report = {}
+    torch.backends.cudnn.deterministic = True
+    st = model.init_state()
+    before = {k: {n: v.clone() for n, v in net.state_dict().items()}
+              for k, net in st.nets.items()}
+    with checked_instance_norm(report), \
+            counted(instance_norm, SEG_PER_STEP, "SegCycle step"), \
+            counted(instance_norm_backward, SEG_PER_STEP,
+                    "SegCycle step backward"):
+        st, m = model.train_step(st, batch)
+    runs = {"kernel": (st, {k: float(v) for k, v in m.items()})}
+    planes = {shape for (_, shape, _) in report}
+    if planes != set(SEG_IN_SHAPES):
+        raise AssertionError(f"SegCycle planes {sorted(planes)}")
+    log_report("phase 15", report)
+    for path, patch in (("plain", plain_instance_norm_fn()),
+                        ("library", lambda x, eps=1e-5: F.instance_norm(
+                            x, eps=eps))):
+        st = model.init_state()
+        with mock.patch.object(layers, "instance_norm", patch), \
+                counted(instance_norm, 0, f"{path} step"):
+            st, m = model.train_step(st, batch)
+        runs[path] = (st, {k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    m_k = runs["kernel"][1]
+    if not all(math.isfinite(v) for _, m in runs.values() for v in m.values()):
+        raise AssertionError(f"SegCycle losses not finite: {runs}")
+    cmp, rel = {}, {}
+    for path in ("kernel", "library"):
+        c = compare_params(before, runs[path][0].nets, runs["plain"][0].nets,
+                           cfg, d_steps=1)
+        cmp[path], rel[path] = c, rel_loss_diffs(runs[path][1],
+                                                 runs["plain"][1])
+        log(f"phase 15: {path} vs plain step: relative loss diffs "
+            + " ".join(f"{k} {v:.1e}" for k, v in rel[path].items())
+            + f"; generator-side gradients max relative L2 diff "
+            f"{c['g_rel']:.2e}; {c['flipped']} of {c['total']} parameters "
+            f"({c['flipped'] / c['total']:.2e}) sign-flipped")
+    log(f"phase 15: losses {m_k}; {SEG_PER_STEP} in_fwd and {SEG_PER_STEP} "
+        f"in_bwd launches a step")
+    del runs, st, before
+    torch.cuda.empty_cache()
+    cli["seconds"] = end_cli(cli.pop("cli"), "SegCycle train CLI")[1]
+
+    torch.manual_seed(0)
+    state = model.init_state()
+    state, dt, peak = timed_steps(model, state, batch)
+    log(f"phase 15: SegCycle train step bs{BATCH} {SEG_H}x{SEG_W} fp32 (TF32 "
+        f"off): {dt * 1e3:.1f} ms/step = {1 / dt:.3f} steps/s = "
+        f"{BATCH / dt:.1f} img/s; peak memory {peak / 2 ** 30:.2f} GiB")
+    profile_step("phase 15", model, state, batch, SEG_IN_SHAPES)
+    del model, state
+    torch.cuda.empty_cache()
+    model16 = create_model(seg_config(dtype="bfloat16"))
+    state16 = model16.init_state()
+    report16 = {}
+    with checked_instance_norm(report16):
+        state16, m16 = model16.train_step(state16, batch)
+    m16 = {k: float(v) for k, v in m16.items()}
+    if not all(math.isfinite(v) for v in m16.values()):
+        raise AssertionError(f"SegCycle bf16 losses: {m16}")
+    if report16.keys() != {(k, sh, "bfloat16") for k, sh, _ in report}:
+        raise AssertionError(f"SegCycle bf16 planes {sorted(report16)}")
+    log_report("phase 15 bf16", report16)
+    _, dt16, peak16 = timed_steps(model16, state16, batch, 2)
+    del model16, state16
+    torch.cuda.empty_cache()
+    log(f"phase 15: SegCycle bf16: first-step losses {m16}; "
+        f"{dt16 * 1e3:.1f} ms/step = {BATCH / dt16:.1f} img/s, peak "
+        f"{peak16 / 2 ** 30:.2f} GiB")
+    # the yardstick of phase 8: 1e-4, or twice the library path's distance
+    k, lib = cmp["kernel"], cmp["library"]
+    flips = {p: c["flipped"] / c["total"] for p, c in cmp.items()}
+    over = [n for n in rel["kernel"]
+            if rel["kernel"][n] > max(1e-4, 2 * rel["library"][n])]
+    if over or k["g_rel"] > max(1e-4, 2 * lib["g_rel"]) or \
+            flips["kernel"] > max(1e-4, 2 * flips["library"]):
+        raise AssertionError(
+            f"SegCycle step, kernel vs plain: losses {over} past their "
+            f"limit; gradients {k['g_rel']} (library {lib['g_rel']}); "
+            f"sign-flipped share {flips['kernel']} (library "
+            f"{flips['library']})")
+    log("phase 15 ok")
+    return BATCH / dt, BATCH / dt16
+
+
+def write_domain_files(root, n=4, size=(200, 60), seed=8):
+    """SYNTHIA-like files: RGB PNGs, 8-bit label PNGs (SYNTHIA ids 0-22,
+    Cityscapes ids 0-33) and 16-bit depth PNGs, listed in .txt files.
+    Returns the train CLI's ``--*_file_train`` arguments."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    w, h = size
+    args = []
+    for name, kind in (("img_source", "rgb"), ("lab_source", 23),
+                       ("depth_source", "depth"), ("img_target", "rgb"),
+                       ("lab_target", 34)):
+        os.makedirs(os.path.join(root, name))
+        paths = []
+        for i in range(n):
+            if kind == "rgb":
+                arr = rng.randint(0, 256, (h, w, 3), np.uint8)
+            elif kind == "depth":
+                arr = rng.randint(0, 12000, (h, w)).astype(np.uint16)
+            else:
+                arr = rng.randint(0, kind, (h, w)).astype(np.uint8)
+            paths.append(os.path.join(root, name, f"{i}.png"))
+            Image.fromarray(arr).save(paths[-1])
+        listing = os.path.join(root, f"{name}.txt")
+        with open(listing, "w") as f:
+            f.write("\n".join(paths) + "\n")
+        args += [f"--{name}_file_train", listing]
+    return args
+
+
+SEG_NETS = ("G_A", "G_B", "D_A", "D_B", "encoderA", "encoderB", "decoderA",
+            "decoderB")
+
+
+def start_seg_cycle_cli():
+    """Phase 16's CLI: ``python -m ...train --model seg_cycle`` on
+    synthesized SYNTHIA-like files at a small width, in a process of its
+    own (``run["cli"]``); the caller ends it."""
+    run = {"dir": tempfile.TemporaryDirectory()}
+    tmp = run["dir"].name
+    run["args"] = [
+        "--model", "seg_cycle", "--dataset_mode", "synthia",
+        *write_domain_files(tmp), "--checkpoints_dir",
+        os.path.join(tmp, "ck"), "--name", "sc", "--ngf", "16", "--ndf",
+        "16", "--netG", "resnet_3blocks", "--fine_size", "96",
+        "--batch_size", "2", "--pool_size", "2", "--niter", "1",
+        "--niter_decay", "0", "--save_epoch_freq", "1", "--print_freq", "2",
+        "--display_freq", "2", "--num_threads", "2", "--device", "cuda"]
+    run["cli"] = start_cli(TRAIN_CLI, run["args"])
+    return run
+
+
+def start_seg_cycle_resume(run):
+    """After the first run: what it wrote, then its resume for epoch 2 in a
+    process of its own (``run["resume"]``)."""
+    import numpy as np
+    from PIL import Image
+
+    expr = os.path.join(run["dir"].name, "ck", "sc")
+    want = [f"1_net_{n}.pth" for n in SEG_NETS] + [
+        "1_train_state.pth", "loss_log.txt", os.path.join("web", "index.html")]
+    missing = [f for f in want if not os.path.exists(os.path.join(expr, f))]
+    if missing:
+        raise AssertionError(f"SegCycle train CLI did not write {missing}")
+    colours = {}
+    for name in ("lab_A", "lab_B", "segAreal", "segBfake"):
+        im = np.asarray(Image.open(os.path.join(
+            expr, "web", "images", f"epoch001_{name}.png")))
+        colours[name] = len(np.unique(im.reshape(-1, 3), axis=0))
+        if im.shape != (96, 320, 3):
+            raise AssertionError(f"label visual {name}: {im.shape}")
+    if min(colours[k] for k in ("lab_A", "lab_B")) < 10:
+        raise AssertionError(f"label visuals not colorized: {colours}")
+    run["colours"] = colours
+    run["resume"] = start_cli(
+        TRAIN_CLI, run["args"] + ["--continue_train", "--epoch_count", "2",
+                                  "--niter", "2"])
+
+
+def phase_t2net(gen, cli):
+    """Phase 16: one T2Net step at full width (192×640, batch 8, the
+    9-block translator at ngf 64, --norm instance) with both InstanceNorm
+    kernels held against their plain versions at every plane, the task
+    net's 1536-channel 12×40 ones among them; the frozen translator; img/s;
+    then the SegCycle CLI's resume, which ran beside the checks."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.config import (Config,
+                                                         apply_model_defaults)
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm, instance_norm_backward)
+
+    cfg = apply_model_defaults(Config(
+        model="seg", batch_size=BATCH, ngf=NGF,
+        net_g=f"resnet_{N_BLOCKS}blocks", device="cuda"))
+    if (cfg.norm, cfg.dataset_mode) != ("instance", "synthia"):
+        raise AssertionError(f"seg defaults: {cfg}")
+    model = create_model(cfg)
+    torch.manual_seed(0)
+    state = model.init_state()
+    s2t0 = {k: v.clone() for k, v in state.nets["s2t"].state_dict().items()}
+    batch = domain_batch(gen)
+    report = {}
+    with checked_instance_norm(report), \
+            counted(instance_norm, T2NET_FWD, "T2Net step"), \
+            counted(instance_norm_backward, T2NET_BWD, "T2Net step backward"):
+        state, m = model.train_step(state, batch)
+    m = {k: float(v) for k, v in m.items()}
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"T2Net losses: {m}")
+    wide = (BATCH, 24 * NGF, SEG_H // 16, SEG_W // 16)
+    got = (report.get(("in_fwd", wide, "float32"), (0,))[0],
+           report.get(("in_bwd", wide, "float32"), (0,))[0])
+    if got != (6, 6):
+        raise AssertionError(f"T2Net {wide} planes: {got} calls, want 6, 6")
+    if not all(torch.equal(v, s2t0[k])
+               for k, v in state.nets["s2t"].state_dict().items()):
+        raise AssertionError("T2Net: the frozen translator moved")
+    log_report("phase 16", report)
+    log(f"phase 16: T2Net first-step metrics {m}; {T2NET_FWD} in_fwd and "
+        f"{T2NET_BWD} in_bwd launches a step")
+    cli["resume_seconds"] = end_cli(cli.pop("resume"),
+                                    "SegCycle train CLI resume")[1]
+    expr = os.path.join(cli["dir"].name, "ck", "sc")
+    step = torch.load(os.path.join(expr, "2_train_state.pth"),
+                      map_location="cpu", weights_only=True)["step"]
+    if step != 4 or not os.path.exists(os.path.join(expr,
+                                                    "2_net_decoderB.pth")):
+        raise AssertionError(f"SegCycle resume: step {step}")
+    cli["dir"].cleanup()
+    state, dt, peak = timed_steps(model, state, batch)
+    log(f"phase 16: T2Net train step bs{BATCH} {SEG_H}x{SEG_W} fp32 (TF32 "
+        f"off): {dt * 1e3:.1f} ms/step = {BATCH / dt:.1f} img/s; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    log(f"phase 16 ok: python -m cycle_depth_estimation_tpu_torch.train "
+        f"--model seg_cycle --dataset_mode synthia (ngf 16, 96x320 from "
+        f"SYNTHIA-like PNGs, batch 2) wrote the {len(SEG_NETS)} nets, the "
+        f"train state and colorized label visuals ({cli['colours']} colours) "
+        f"in {cli['seconds']:.1f} s, beside phase 15; its resume ran epoch 2 "
+        f"({cli['resume_seconds']:.1f} s, beside phase 16's checks) and left "
+        f"no process running")
+    del model, state
+    torch.cuda.empty_cache()
+    return BATCH / dt
 
 
 LOADERS = {  # name: the train CLI's loader flags
@@ -1639,8 +2165,36 @@ def main() -> int:
     phase_pix2pix_cli(p2p_cli)
     pix2pix = {"instance_norm": instance_norm.launches,
                "instance_norm_bwd": instance_norm_backward.launches}
+    torch.cuda.empty_cache()
+
+    def counts_of(run):
+        instance_norm.launches = 0
+        instance_norm_backward.launches = 0
+        fused_in_epilogue.launches = 0
+        out = run()
+        return out, {"instance_norm": instance_norm.launches,
+                     "instance_norm_bwd": instance_norm_backward.launches}
+
+    ips_bf16_train, bf16_train = counts_of(phase_bf16_training)
+    _, remat = counts_of(phase_remat)
+    seg_cli = start_seg_cycle_cli()  # beside phase 15's checks
+    try:
+        (ips_seg, ips_seg16), seg_cycle = counts_of(
+            lambda: phase_seg_cycle(gen, seg_cli))
+    finally:
+        if "cli" in seg_cli:
+            end_cli(seg_cli.pop("cli"), "SegCycle train CLI")
+    start_seg_cycle_resume(seg_cli)  # beside phase 16's checks
+    try:
+        ips_t2net, t2net = counts_of(lambda: phase_t2net(gen, seg_cli))
+    finally:
+        if "resume" in seg_cli:
+            end_cli(seg_cli.pop("resume"), "SegCycle train CLI resume")
+    later = {"bf16_and_fp32_training": bf16_train,
+             "remat_and_plain": remat,
+             "seg_cycle": seg_cycle, "t2net": t2net}
     for path, counts in (("serving", serving), ("training", training),
-                         ("pix2pix", pix2pix)):
+                         ("pix2pix", pix2pix), *later.items()):
         for name, n in counts.items():
             if n == 0:
                 raise AssertionError(f"{name} was not launched on the "
@@ -1654,10 +2208,13 @@ def main() -> int:
         {"name": "instance_norm", "route": "triton", "source": in_source,
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/instance_norm.py:55",
          "launches": (serving["instance_norm"] + training["instance_norm"]
-                      + pix2pix["instance_norm"]),
+                      + pix2pix["instance_norm"]
+                      + sum(c["instance_norm"] for c in later.values())),
          "launches_by_path": {"serving": serving["instance_norm"],
                               "training": training["instance_norm"],
-                              "pix2pix": pix2pix["instance_norm"]},
+                              "pix2pix": pix2pix["instance_norm"],
+                              **{p: c["instance_norm"]
+                                 for p, c in later.items()}},
          "max_abs_err": in_err,
          "ms": in_tot["ms"], "plain_ms": in_tot["plain_ms"],
          "bound_ms": in_bound, "bound_by": in_by,
@@ -1665,9 +2222,12 @@ def main() -> int:
         {"name": "instance_norm_bwd", "route": "triton", "source": in_source,
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/instance_norm.py:105",
          "launches": (training["instance_norm_bwd"]
-                      + pix2pix["instance_norm_bwd"]),
+                      + pix2pix["instance_norm_bwd"]
+                      + sum(c["instance_norm_bwd"] for c in later.values())),
          "launches_by_path": {"training": training["instance_norm_bwd"],
-                              "pix2pix": pix2pix["instance_norm_bwd"]},
+                              "pix2pix": pix2pix["instance_norm_bwd"],
+                              **{p: c["instance_norm_bwd"]
+                                 for p, c in later.items()}},
          "max_abs_err": bwd_err,
          "ms": bwd_tot["ms"], "plain_ms": bwd_tot["plain_ms"],
          "bound_ms": bwd_bound, "bound_by": bwd_by,
@@ -1686,7 +2246,11 @@ def main() -> int:
         f"int8 {ips_int8:.1f}, "
         + ", ".join(f"{m} {v:.1f}" for m, v in ips_up.items())
         + f"; CycleGAN training fp32 {ips_train:.1f} img/s, pix2pix "
-        f"training fp32 {ips_p2p:.1f} img/s (bs{BATCH}, {SIZE}^2); kernel "
+        f"training fp32 {ips_p2p:.1f} img/s (bs{BATCH}, {SIZE}^2), bf16 "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ips_bf16_train.items())
+        + f" img/s; SegCycle fp32 {ips_seg:.1f}, bf16 {ips_seg16:.1f} img/s "
+        f"and T2Net fp32 {ips_t2net:.1f} img/s (bs{BATCH}, {SEG_H}x{SEG_W}); "
+        "kernel "
         "ms are sums over the calls of one forward (23: instance_norm in "
         "bf16, int8_epilogue in bf16 up mode) or of one fp32 CycleGAN train "
         f"step ({TRAIN_PER_STEP}: instance_norm_bwd); total "

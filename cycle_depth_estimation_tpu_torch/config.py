@@ -1,6 +1,6 @@
 """Config of the port: the subset of the JAX package's ``Config`` that the
-test CLI, the CycleGAN and pix2pix models, the data layer and the train CLI
-read, with the same field
+test CLI, the CycleGAN, pix2pix, SegCycle and T2Net (``seg``) models, the
+data layer and the train CLI read, with the same field
 names, defaults, reference flag aliases (``--loadSize``, ``--netD``,
 ``--lambda_A`` …) and two-phase parse (base flags, then per-model defaults
 for flags the user did not set). ``device`` is new: the port runs on
@@ -63,6 +63,17 @@ class Config:
     device_aug: bool = False
     init_type: str = "normal"
     init_gain: float = 0.02
+    # domain-pair dataset paths (``synthia``): a folder or a .txt list each
+    img_source_file_train: str = ""
+    img_target_file_train: str = ""
+    lab_source_file_train: str = ""
+    lab_target_file_train: str = ""
+    depth_source_file_train: str = ""
+    img_source_file_test: str = ""
+    img_target_file_test: str = ""
+    lab_source_file_test: str = ""
+    lab_target_file_test: str = ""
+    depth_source_file_test: str = ""
     # train options (reference options/train_options.py)
     is_train: bool = True
     display_freq: int = 400
@@ -93,6 +104,8 @@ class Config:
     aspect_ratio: float = 1.0
     num_test: int = 50
     dtype: str = "float32"          # compute dtype: float32 | bfloat16
+    remat: bool = False             # cycle_gan: recompute the generator
+                                    # forwards in backward (checkpoint)
     seed: int = 0
     device: str = "cuda"            # 'cuda' | 'cpu'
     pth_path: str = ""              # reference generator .pth; "" = random init
@@ -113,6 +126,8 @@ MODEL_DEFAULTS = {
     "pix2pix": dict(pool_size=0, no_lsgan=True, norm="batch",
                     dataset_mode="aligned", net_g="unet_256"),
     "test": dict(no_dropout=True, dataset_mode="single", is_train=False),
+    "seg": dict(no_dropout=True, dataset_mode="synthia"),
+    "seg_cycle": dict(no_dropout=True, dataset_mode="synthia"),
 }
 
 

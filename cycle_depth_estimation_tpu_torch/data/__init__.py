@@ -1,7 +1,8 @@
 """Data layer: dataset registry and loader factory (the JAX package's
 ``data/__init__.py``). Batches hold NCHW float32 tensors (uint8 at
-``load_size`` with ``device_aug``, finished by ``device_transforms``) and
-lists of paths. Loaders are in ``loader.py``."""
+``load_size`` with ``device_aug``, finished by ``device_transforms``), NHW
+int64 label maps (``synthia``) and lists of paths. Loaders are in
+``loader.py``."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ def register_dataset(name: str):
 
 
 def create_dataset(cfg, phase: str = None):
-    from . import datasets  # noqa: F401  (registers the datasets)
+    from . import datasets, domain_datasets  # noqa: F401  (register them)
 
     if cfg.dataset_mode not in _DATASET_REGISTRY:
         raise KeyError(f"dataset [{cfg.dataset_mode}] not registered; "

@@ -1,6 +1,7 @@
 """Model registry: ``--model <name>`` → model class (the JAX package's
 ``models/__init__.py``). The port registers ``test`` (serving),
-``cycle_gan`` and ``pix2pix`` (training)."""
+``cycle_gan``, ``pix2pix``, ``seg_cycle`` (SegCycle) and ``seg`` (T2Net)
+(training)."""
 
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ def register_model(name: str):
 
 def create_model(cfg, device=None):
     """Build the model ``cfg.model`` on ``device`` (default ``cfg.device``)."""
-    from . import cycle_gan, pix2pix, test_model  # noqa: F401  (register)
+    from . import (cycle_gan, pix2pix, seg_cycle, seg_model,  # noqa: F401
+                   test_model)                                # (register)
 
     if cfg.model not in _MODEL_REGISTRY:
         raise KeyError(f"model [{cfg.model}] not registered; available: "

@@ -13,18 +13,28 @@ One train step is the JAX package's, in this order:
    G update, detached — and one Adam step on D;
 3. metrics: the G terms of step 1 and the last D pass's ``D_A``/``D_B``.
 
-Losses are fp32 means. Training runs in fp32: bf16 training is not ported.
+Losses are fp32 means. ``--dtype bfloat16`` runs every conv in bf16 with
+fp32 parameters and Adam state (``ops.layers.set_compute_dtype``).
+``--remat`` wraps each of the six generator applications in
+``torch.utils.checkpoint`` (the JAX ``jax.checkpoint``): backward runs the
+forward again instead of keeping its activations, and the BatchNorm
+running statistics of that second forward are put back, so they move once
+per application, as the JAX step threads them. Dropout draws the same mask
+again (checkpoint restores the RNG state).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import register_model
 from ..config import Config
+from ..ops.layers import running_stats_kept, set_compute_dtype
 from ..utils.image_pool import ImagePool
 from .base_model import BaseModel, ModelState, make_optimizer
 from .networks import define_D, define_G, gan_loss, l1_loss
@@ -40,10 +50,6 @@ class CycleGANModel(BaseModel):
     lr_opt_names = ("G", "D")
 
     def __init__(self, cfg: Config, device=None):
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"--dtype {cfg.dtype}: CycleGAN training runs in float32 "
-                "only (bf16 training is not ported yet)")
         super().__init__(cfg, device)
         self.gan_mode = "vanilla" if cfg.no_lsgan else "lsgan"
 
@@ -67,7 +73,8 @@ class CycleGANModel(BaseModel):
             "D_B": define_D(cfg.input_nc, cfg.ndf, cfg.net_d, cfg.n_layers_d,
                             **d_kw),
         }
-        nets = {k: v.to(self.device) for k, v in nets.items()}
+        nets = {k: set_compute_dtype(v.to(self.device), cfg.compute_dtype())
+                for k, v in nets.items()}
         optimizers = {
             "G": make_optimizer(itertools.chain(nets["G_A"].parameters(),
                                                 nets["G_B"].parameters()),
@@ -76,25 +83,29 @@ class CycleGANModel(BaseModel):
                                                 nets["D_B"].parameters()),
                                 cfg.lr, cfg.beta1),
         }
-        size = (cfg.fine_size, cfg.fine_size)
-        pools = {name: ImagePool(cfg.pool_size, (nc, *size), self.device,
+        pools = {name: ImagePool(cfg.pool_size, self.device,
                                  generator=torch.Generator().manual_seed(
                                      int(torch.randint(2 ** 62, (),
                                                        generator=gen))))
-                 for name, nc in (("fake_A", cfg.input_nc),
-                                  ("fake_B", cfg.output_nc))}
+                 for name in ("fake_A", "fake_B")}
         return ModelState(nets=nets, optimizers=optimizers, pools=pools)
 
     # ------------------------------------------------------------------
+    def _apply_g(self, net, x):
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return net(x)
+        return checkpoint(net, x, use_reentrant=False, context_fn=lambda: (
+            contextlib.nullcontext(), running_stats_kept(net)))
+
     def _g_losses(self, nets, real_A, real_B):
         cfg = self.cfg
         G_A, G_B = nets["G_A"], nets["G_B"]
-        fake_B = G_A(real_A)
-        rec_A = G_B(fake_B)
-        fake_A = G_B(real_B)
-        rec_B = G_A(fake_A)
-        idt_A = G_A(real_B)
-        idt_B = G_B(real_A)
+        fake_B = self._apply_g(G_A, real_A)
+        rec_A = self._apply_g(G_B, fake_B)
+        fake_A = self._apply_g(G_B, real_B)
+        rec_B = self._apply_g(G_A, fake_A)
+        idt_A = self._apply_g(G_A, real_B)
+        idt_B = self._apply_g(G_B, real_A)
         if cfg.lambda_identity > 0:
             loss_idt_A = (l1_loss(idt_A, real_B) * cfg.lambda_b
                           * cfg.lambda_identity)

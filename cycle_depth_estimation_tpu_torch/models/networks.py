@@ -39,7 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.init import init_weights
-from ..ops.layers import InstanceNorm, Norm, norm_uses_bias
+from ..ops.layers import (Conv2d, ConvTranspose2d, InstanceNorm, Norm,
+                          norm_uses_bias)
 
 
 class ResnetBlock(nn.Module):
@@ -49,11 +50,11 @@ class ResnetBlock(nn.Module):
                  use_dropout: bool = False):
         super().__init__()
         bias = norm_uses_bias(norm)
-        layers = [nn.ReflectionPad2d(1), nn.Conv2d(dim, dim, 3, bias=bias),
+        layers = [nn.ReflectionPad2d(1), Conv2d(dim, dim, 3, bias=bias),
                   Norm(norm, dim), nn.ReLU(True)]
         if use_dropout:
             layers.append(nn.Dropout(0.5))
-        layers += [nn.ReflectionPad2d(1), nn.Conv2d(dim, dim, 3, bias=bias),
+        layers += [nn.ReflectionPad2d(1), Conv2d(dim, dim, 3, bias=bias),
                    Norm(norm, dim)]
         self.conv_block = nn.Sequential(*layers)
 
@@ -78,11 +79,11 @@ class ResnetGenerator(nn.Module):
         self.n_blocks = n_blocks
         self.up_mode = up_mode
         bias = norm_uses_bias(norm)
-        layers = [nn.ReflectionPad2d(3), nn.Conv2d(input_nc, ngf, 7, bias=bias),
+        layers = [nn.ReflectionPad2d(3), Conv2d(input_nc, ngf, 7, bias=bias),
                   Norm(norm, ngf), nn.ReLU(True)]
         for i in range(2):
             mult = 2 ** i
-            layers += [nn.Conv2d(ngf * mult, ngf * mult * 2, 3, stride=2,
+            layers += [Conv2d(ngf * mult, ngf * mult * 2, 3, stride=2,
                                  padding=1, bias=bias),
                        Norm(norm, ngf * mult * 2), nn.ReLU(True)]
         layers += [ResnetBlock(ngf * 4, norm, use_dropout)
@@ -91,14 +92,14 @@ class ResnetGenerator(nn.Module):
             mult = 2 ** (2 - i)
             if up_mode == "resize_conv":
                 layers += [nn.Upsample(scale_factor=2, mode="nearest"),
-                           nn.Conv2d(ngf * mult, ngf * mult // 2, 3,
+                           Conv2d(ngf * mult, ngf * mult // 2, 3,
                                      padding=1, bias=bias)]
             else:
-                layers.append(nn.ConvTranspose2d(
+                layers.append(ConvTranspose2d(
                     ngf * mult, ngf * mult // 2, 3, stride=2, padding=1,
                     output_padding=1, bias=bias))
             layers += [Norm(norm, ngf * mult // 2), nn.ReLU(True)]
-        layers += [nn.ReflectionPad2d(3), nn.Conv2d(ngf, output_nc, 7),
+        layers += [nn.ReflectionPad2d(3), Conv2d(ngf, output_nc, 7),
                    nn.Tanh()]
         self.model = nn.Sequential(*layers)
 
@@ -146,20 +147,20 @@ class UnetSkipConnectionBlock(nn.Module):
         self.outermost = outermost
         bias = norm_uses_bias(norm)
         input_nc = outer_nc if input_nc is None else input_nc
-        down = nn.Conv2d(input_nc, inner_nc, 4, 2, 1, bias=bias)
+        down = Conv2d(input_nc, inner_nc, 4, 2, 1, bias=bias)
         if outermost:
             layers = [down, submodule, nn.ReLU(True),
-                      nn.ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1),
+                      ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1),
                       nn.Tanh()]
         elif innermost:
             layers = [nn.LeakyReLU(0.2, True), down, nn.ReLU(True),
-                      nn.ConvTranspose2d(inner_nc, outer_nc, 4, 2, 1,
+                      ConvTranspose2d(inner_nc, outer_nc, 4, 2, 1,
                                          bias=bias),
                       Norm(norm, outer_nc)]
         else:
             layers = [nn.LeakyReLU(0.2, True), down, Norm(norm, inner_nc),
                       submodule, nn.ReLU(True),
-                      nn.ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1,
+                      ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1,
                                          bias=bias),
                       Norm(norm, outer_nc)]
             if use_dropout:
@@ -263,15 +264,15 @@ class NLayerDiscriminator(nn.Module):
         super().__init__()
         self.n_layers = n_layers
         use_bias = norm_uses_bias(norm)
-        layers = [nn.Conv2d(input_nc, ndf, 4, 2, 1), nn.LeakyReLU(0.2, True)]
+        layers = [Conv2d(input_nc, ndf, 4, 2, 1), nn.LeakyReLU(0.2, True)]
         mult = 1
         for n in range(1, n_layers + 1):
             prev, mult = mult, min(2 ** n, 8)
             stride = 2 if n < n_layers else 1
-            layers += [nn.Conv2d(ndf * prev, ndf * mult, 4, stride, 1,
+            layers += [Conv2d(ndf * prev, ndf * mult, 4, stride, 1,
                                  bias=use_bias),
                        Norm(norm, ndf * mult), nn.LeakyReLU(0.2, True)]
-        layers.append(nn.Conv2d(ndf * mult, 1, 4, 1, 1))
+        layers.append(Conv2d(ndf * mult, 1, 4, 1, 1))
         if use_sigmoid:
             layers.append(nn.Sigmoid())
         self.model = nn.Sequential(*layers)
@@ -300,10 +301,10 @@ class PixelDiscriminator(nn.Module):
                  norm: str = "instance", use_sigmoid: bool = False):
         super().__init__()
         use_bias = norm_uses_bias(norm)
-        layers = [nn.Conv2d(input_nc, ndf, 1), nn.LeakyReLU(0.2, True),
-                  nn.Conv2d(ndf, ndf * 2, 1, bias=use_bias), Norm(norm, ndf * 2),
+        layers = [Conv2d(input_nc, ndf, 1), nn.LeakyReLU(0.2, True),
+                  Conv2d(ndf, ndf * 2, 1, bias=use_bias), Norm(norm, ndf * 2),
                   nn.LeakyReLU(0.2, True),
-                  nn.Conv2d(ndf * 2, 1, 1, bias=use_bias)]
+                  Conv2d(ndf * 2, 1, 1, bias=use_bias)]
         if use_sigmoid:
             layers.append(nn.Sigmoid())
         self.net = nn.Sequential(*layers)
@@ -339,19 +340,26 @@ def define_D(input_nc: int, ndf: int, net_d: str, n_layers_d: int = 3,
 
 
 def biases_before_norm(net: nn.Module) -> set:
-    """State-dict names of the conv biases that an InstanceNorm follows.
-    The norm removes any per-channel constant, so their gradient is zero up
-    to rounding, and Adam's first step moves each by up to ±lr in a
-    direction that rounding picks: two correct implementations differ there
-    by up to 2·lr per step."""
+    """State-dict names of the conv biases that a norm follows (an
+    InstanceNorm, or a BatchNorm in train mode). The norm removes any
+    per-channel constant, so their gradient is zero up to rounding, and
+    Adam's first step moves each by up to ±lr in a direction that rounding
+    picks: two correct implementations differ there by up to 2·lr per step.
+    A block whose convs reach their norm outside one Sequential lists them
+    in ``convs_before_norm()``."""
     names = set()
+    paths = {m: p for p, m in net.named_modules()}
     for prefix, seq in net.named_modules():
+        for conv in getattr(seq, "convs_before_norm", list)():
+            if conv.bias is not None:
+                names.add(f"{paths[conv]}.bias")
         if not isinstance(seq, nn.Sequential):
             continue
         mods = list(seq)
         for i, (m, nxt) in enumerate(zip(mods, mods[1:])):
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and \
-                    m.bias is not None and isinstance(nxt, InstanceNorm):
+                    m.bias is not None and \
+                    isinstance(nxt, (InstanceNorm, nn.BatchNorm2d)):
                 names.add(f"{prefix}.{i}.bias")
     return names
 

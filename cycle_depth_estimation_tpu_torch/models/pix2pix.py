@@ -17,7 +17,8 @@ One train step is the JAX package's, in this order:
 The JAX step runs G a second time inside the G loss with the same
 parameters, statistics and dropout key, so it reuses the forward of step 1
 here; its statistics from that pass are dropped there, as they are never
-made here. Losses are fp32 means; training runs in fp32.
+made here. Losses are fp32 means; ``--dtype bfloat16`` runs every conv in
+bf16 with fp32 parameters and Adam state (``ops.layers.set_compute_dtype``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from . import register_model
 from ..config import Config
+from ..ops.layers import set_compute_dtype
 from ..utils.image_pool import ImagePool
 from .base_model import BaseModel, ModelState, make_optimizer
 from .networks import define_D, define_G, gan_loss, l1_loss
@@ -41,10 +43,6 @@ class Pix2PixModel(BaseModel):
     lr_opt_names = ("G", "D")
 
     def __init__(self, cfg: Config, device=None):
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"--dtype {cfg.dtype}: pix2pix training runs in float32 only "
-                "(bf16 training is not ported yet)")
         super().__init__(cfg, device)
         self.gan_mode = "vanilla" if cfg.no_lsgan else "lsgan"
 
@@ -64,13 +62,12 @@ class Pix2PixModel(BaseModel):
                           init_type=cfg.init_type, init_gain=cfg.init_gain,
                           generator=gen),
         }
-        nets = {k: v.to(self.device) for k, v in nets.items()}
+        nets = {k: set_compute_dtype(v.to(self.device), cfg.compute_dtype())
+                for k, v in nets.items()}
         optimizers = {k: make_optimizer(nets[k].parameters(), cfg.lr,
                                         cfg.beta1) for k in ("G", "D")}
         pool = ImagePool(
-            cfg.pool_size,
-            (cfg.input_nc + cfg.output_nc, cfg.fine_size, cfg.fine_size),
-            self.device, generator=torch.Generator().manual_seed(
+            cfg.pool_size, self.device, generator=torch.Generator().manual_seed(
                 int(torch.randint(2 ** 62, (), generator=gen))))
         return ModelState(nets=nets, optimizers=optimizers,
                           pools={"fake_AB": pool})

@@ -8,10 +8,20 @@ here. ``conv3x3_reflect`` of the JAX module has no counterpart.
 stride-2 transposed conv as four dense convs and an interleave, here on int8
 through ``conv2d_int8`` (the ``int8_dilated`` and ``int8_phases`` up modes
 of the int8 serving path).
+
+``Conv2d`` and ``ConvTranspose2d`` take the JAX ``Conv(dtype=…)``: with a
+``compute_dtype`` set (``set_compute_dtype``; ``--dtype bfloat16``
+training) each casts its input, weight and bias to it and returns it, while
+the parameters, and so the optimizer, stay fp32. cuDNN adds the bias in its
+fp32 accumulator before the one rounding, where the JAX layer rounds the
+conv, adds the fp32 bias and rounds again: one bf16 rounding apart.
+``BatchNorm`` returns its input's dtype (the JAX ``Norm(dtype=…)``) with
+fp32 statistics; ``PReLU`` casts its α to the input's dtype.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional, Tuple
 
 import torch
@@ -20,6 +30,54 @@ from torch import nn
 
 from .int8_conv import conv2d_int8
 from .kernels.instance_norm import instance_norm
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and state-dict keys) with an optional
+    compute dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with an optional compute dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+def set_compute_dtype(net: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Run every conv of ``net`` in ``dtype`` (None or fp32: as its input
+    comes); the parameters keep their dtype."""
+    dt = None if dtype == torch.float32 else dtype
+    for m in net.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d)):
+            m.compute_dtype = dt
+    return net
+
+
+class PReLU(nn.PReLU):
+    """``nn.PReLU()`` (one α, 0.25, key ``weight``) as the JAX
+    ``prelu_apply``: ``where(x >= 0, x, α·x)``, α in x's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -70,6 +128,21 @@ class BatchNorm(nn.BatchNorm2d):
         rv = self.running_var.data
         rv.sub_((rv - (1 - self.momentum) * old) / n)
         return y
+
+
+@contextmanager
+def running_stats_kept(net: nn.Module):
+    """Restore the running statistics and batch counts of ``net``'s
+    BatchNorms on exit: a forward run again inside leaves them as it found
+    them (the recompute of ``torch.utils.checkpoint``)."""
+    saved = [(b, b.clone()) for m in net.modules()
+             if isinstance(m, nn.BatchNorm2d) for b in m.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)
 
 
 def Norm(kind: str, num_features: Optional[int] = None) -> nn.Module:

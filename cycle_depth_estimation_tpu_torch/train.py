@@ -9,6 +9,17 @@ reference train.py:10-81)::
         --dataroot <dir with train/ [test/] of side-by-side AB images> \\
         [--direction BtoA] [--num_threads N | --worker_procs N] \\
         [--device_aug]
+    python -m cycle_depth_estimation_tpu_torch.train --model seg_cycle \\
+        --img_source_file_train <dir or .txt> --img_target_file_train … \\
+        --lab_source_file_train … --lab_target_file_train … \\
+        --depth_source_file_train … [--*_file_test …]
+    python -m cycle_depth_estimation_tpu_torch.train --model seg …  (T2Net)
+
+``seg_cycle`` and ``seg`` read the ``synthia`` dataset (their default):
+SYNTHIA images, labels and depth against Cityscapes images and labels,
+192×640 at the default ``fine_size``. ``--dtype bfloat16`` trains every
+model in bf16 with fp32 parameters; ``--remat`` (``cycle_gan``) recomputes
+the generator forwards in backward.
 
 Epochs ``epoch_count … niter + niter_decay``: a train step per batch, with
 losses printed and logged every ``print_freq`` images, visuals saved every

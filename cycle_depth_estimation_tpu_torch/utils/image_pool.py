@@ -7,8 +7,11 @@ Per image of a query, in batch order:
 - once full: with p > 0.5 return a random stored image and store the new
   one in its place; otherwise return the image.
 
-``pool_size`` 0 is the identity. The buffer is one (pool_size, C, H, W)
-tensor on the images' device, written in place; the draws come from the
+``pool_size`` 0 is the identity. The buffer is fp32 and so is what a
+query returns, whatever the images' dtype (the JAX pool's; a bf16 image
+converts exactly). The buffer is one (pool_size, C, H, W) tensor that the
+first query allocates on its images' device and later queries write in
+place, so one pool serves any image size; the draws come from the
 pool's own CPU ``torch.Generator``, so the choices need no device sync and
 are the same on every device for one seed. The JAX pool draws from
 ``jax.random`` keys instead, so the two agree draw for draw only while the
@@ -17,17 +20,18 @@ pool is under-full, where nothing is drawn.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
 import torch
 
 
 class ImagePool:
-    def __init__(self, pool_size: int, image_shape: Sequence[int],
-                 device=None, generator: Optional[torch.Generator] = None):
+    def __init__(self, pool_size: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        """``device`` is where ``load_state_dict`` puts the buffer."""
         self.pool_size = pool_size
-        self.images = torch.zeros((max(pool_size, 1), *image_shape),
-                                  device=device)
+        self.device = device
+        self.images: Optional[torch.Tensor] = None
         self.count = 0
         self.generator = (torch.Generator().manual_seed(0)
                           if generator is None else generator)
@@ -38,7 +42,10 @@ class ImagePool:
         if self.pool_size == 0:
             return batch
         batch = batch.detach()
-        out = batch.clone()
+        if self.images is None:
+            self.images = torch.zeros((self.pool_size, *batch.shape[1:]),
+                                      device=batch.device)
+        out = batch.to(self.images.dtype, copy=True)
         for i in range(batch.shape[0]):
             if self.count < self.pool_size:
                 self.images[self.count].copy_(batch[i])
@@ -57,6 +64,7 @@ class ImagePool:
                 "rng": self.generator.get_state()}
 
     def load_state_dict(self, sd: Dict[str, object]) -> None:
-        self.images.copy_(sd["images"])
+        self.images = (None if sd["images"] is None
+                       else sd["images"].to(self.device, copy=True))
         self.count = int(sd["count"])
         self.generator.set_state(sd["rng"])

@@ -1,5 +1,8 @@
-"""Tensor → image conversion (the JAX package's ``utils/images.py``,
-reference util/util.py), for NCHW/CHW tensors."""
+"""Tensor → image conversion and label colorization (the JAX package's
+``utils/images.py``, reference util/util.py), for NCHW/CHW tensors and
+(N)HW label maps. ``label2im`` uses the JAX package's palette (a
+Pascal-VOC-style bit shuffle of the class id), packaged here instead of the
+reference's colour tables read from absolute paths."""
 
 from __future__ import annotations
 
@@ -20,6 +23,35 @@ def tensor2im(x: torch.Tensor, imtype=np.uint8) -> np.ndarray:
         arr = np.tile(arr, (1, 1, 3))
     arr = (arr + 1.0) / 2.0 * 255.0
     return np.clip(arr, 0, 255).astype(imtype)
+
+
+def _make_palette(n: int = 256) -> np.ndarray:
+    palette = np.zeros((n, 3), np.uint8)
+    for i in range(n):
+        c, r, g, b = i, 0, 0, 0
+        for j in range(8):
+            r |= ((c >> 0) & 1) << (7 - j)
+            g |= ((c >> 1) & 1) << (7 - j)
+            b |= ((c >> 2) & 1) << (7 - j)
+            c >>= 3
+        palette[i] = (r, g, b)
+    return palette
+
+
+_PALETTE = _make_palette()
+
+
+def label2im(labels, ignore_index: int = 255) -> np.ndarray:
+    """The first map of an integer label tensor or array, (N)HW or
+    (N)1HW, → colorized HWC uint8; ``ignore_index`` is black."""
+    arr = (labels.detach().cpu().numpy() if isinstance(labels, torch.Tensor)
+           else np.asarray(labels))
+    while arr.ndim > 2:
+        arr = arr[0]
+    arr = np.clip(arr.astype(np.int64), 0, 255)
+    out = _PALETTE[arr]
+    out[arr == ignore_index] = 0
+    return out
 
 
 def save_image(image: np.ndarray, path: str):

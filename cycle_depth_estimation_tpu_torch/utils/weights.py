@@ -17,22 +17,32 @@ takes instance norm only; the port's converter takes BatchNorm too):
 - BatchNorm: flax ``params[site]['norm']`` ``scale``/``bias`` → ``weight``/
   ``bias``, ``batch_stats[site]['norm']`` ``mean``/``var`` →
   ``running_mean``/``running_var``. flax keeps no batch count, so
-  ``num_batches_tracked`` is left out, as in a pre-0.4.1 reference ``.pth``.
+  ``num_batches_tracked`` is left out, as in a pre-0.4.1 reference ``.pth``;
+- PReLU: the network's one ``prelu_alpha`` → every state-dict key of the
+  shared module (``….weight`` under each block that holds it).
+
+The seg nets (T2Net's ``UNetGenerator``, SegCycle's ``UNetEncoder`` and
+``UNetDecoder``) have no JAX importer and no reference ``.pth`` here: their
+converters are held against the JAX modules' outputs, and the outer names
+of their state dicts against nothing (``models/seg_network.py``).
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from torch import nn
 
+from ..models.encoder_decoder import UNetDecoder, UNetEncoder
 from ..models.networks import (_RESNET_BLOCKS, _UNET_DOWNS,
                                NLayerDiscriminator, PixelDiscriminator,
                                ResnetGenerator, UnetGenerator)
+from ..models.seg_network import UNetGenerator
+from ..ops.layers import PReLU
 
 
 def conv_weight_from_hwio(k: np.ndarray) -> np.ndarray:
@@ -89,11 +99,16 @@ def _state_dict_from_jax(shell: nn.Module, params: Mapping[str, Any],
             sd[f"{prefix}.bias"] = _t(entry["bias"])
     norms = getattr(shell, "site_norms", dict)()
     for site, module in norms.items():
+        if not isinstance(module, nn.BatchNorm2d):
+            continue  # InstanceNorm(affine=False): nothing to carry
         prefix = names[module]
         p, s = _lookup(params, site)["norm"], _lookup(batch_stats, site)["norm"]
         sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _t(p["scale"]), _t(p["bias"])
         sd[f"{prefix}.running_mean"] = _t(s["mean"])
         sd[f"{prefix}.running_var"] = _t(s["var"])
+    for name, module in shell.named_modules(remove_duplicate=False):
+        if isinstance(module, PReLU):
+            sd[f"{name}.weight"] = _t(params["prelu_alpha"])
     return sd
 
 
@@ -180,6 +195,108 @@ def pix2pix_state_dicts_from_jax(params: Mapping[str, Any],
             params["G"], _RESNET_BLOCKS[cfg.net_g], not cfg.no_dropout)
     return {"G": g, "D": _discriminator_state_dict_from_jax(
         params["D"], batch_stats.get("D"), cfg)}
+
+
+def jax_variables_from_net(net: nn.Module) -> Tuple[dict, dict]:
+    """The other way: a port net's parameters and BatchNorm statistics as
+    the JAX module's ``params`` and ``batch_stats`` trees (numpy leaves,
+    HWIO kernels), by ``site_convs``/``site_norms``; the shared PReLU α as
+    ``prelu_alpha``."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, site, value):
+        *path, last = site.split(".")
+        for part in path:
+            tree = tree.setdefault(part, {})
+        tree[last] = value
+
+    def arr(t):  # a copy: the net's later in-place updates stay its own
+        return t.detach().float().cpu().numpy().copy()
+
+    for site, m in net.site_convs().items():
+        kernel = (hwio_from_conv_transpose_weight(m.weight)
+                  if isinstance(m, nn.ConvTranspose2d)
+                  else hwio_from_conv_weight(m.weight))
+        put(params, site, {"kernel": kernel} if m.bias is None else
+            {"kernel": kernel, "bias": arr(m.bias)})
+    for site, m in getattr(net, "site_norms", dict)().items():
+        if isinstance(m, nn.BatchNorm2d):
+            put(params, site, {"norm": {"scale": arr(m.weight),
+                                        "bias": arr(m.bias)}})
+            put(stats, site, {"norm": {"mean": arr(m.running_mean),
+                                       "var": arr(m.running_var)}})
+    for m in net.modules():
+        if isinstance(m, PReLU):
+            params["prelu_alpha"] = arr(m.weight)
+    return params, stats
+
+
+def _variables(v: Mapping[str, Any]):
+    return v["params"], v.get("batch_stats") or {}
+
+
+def unet_task_state_dict_from_jax(variables: Mapping[str, Any],
+                                  layers: int = 4, norm: str = "batch",
+                                  activation: str = "PReLU",
+                                  ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX T2Net ``UNetGenerator`` variables (``params``, and
+    ``batch_stats`` with BatchNorm; numpy leaves) → the port's state
+    dict."""
+    return _state_dict_from_jax(
+        UNetGenerator(ngf=2, layers=layers, norm=norm, activation=activation),
+        *_variables(variables))
+
+
+def unet_encoder_state_dict_from_jax(variables: Mapping[str, Any]
+                                     ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``UNetEncoder`` variables (BatchNorm, PReLU) → the port's."""
+    return _state_dict_from_jax(UNetEncoder(ngf=2), *_variables(variables))
+
+
+def unet_decoder_state_dict_from_jax(variables: Mapping[str, Any],
+                                     output_nc: int
+                                     ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``UNetDecoder`` variables (BatchNorm, PReLU) → the port's."""
+    return _state_dict_from_jax(UNetDecoder(output_nc, ngf=2),
+                                *_variables(variables))
+
+
+def seg_cycle_state_dicts_from_jax(params: Mapping[str, Any],
+                                   batch_stats: Mapping[str, Any], cfg,
+                                   nc_a: int = 22, nc_b: int = 28
+                                   ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """A JAX SegCycle ``ModelState`` (``params`` and ``batch_stats`` of the
+    eight nets; numpy leaves) → the port's eight state dicts, for ``cfg``'s
+    ``net_g``, ``no_dropout``, ``norm``, ``net_d`` and ``n_layers_d``."""
+    out = {}
+    for name in ("G_A", "G_B"):
+        out[name] = resnet_generator_state_dict_from_jax(
+            params[name], _RESNET_BLOCKS[cfg.net_g], not cfg.no_dropout)
+    for name in ("D_A", "D_B"):
+        out[name] = _discriminator_state_dict_from_jax(
+            params[name], batch_stats.get(name), cfg)
+    for name in ("encoderA", "encoderB"):
+        out[name] = unet_encoder_state_dict_from_jax(
+            {"params": params[name], "batch_stats": batch_stats[name]})
+    for name, nc in (("decoderA", nc_a), ("decoderB", nc_b)):
+        out[name] = unet_decoder_state_dict_from_jax(
+            {"params": params[name], "batch_stats": batch_stats[name]}, nc)
+    return out
+
+
+def seg_state_dicts_from_jax(params: Mapping[str, Any],
+                             batch_stats: Mapping[str, Any], cfg
+                             ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """A JAX T2Net ``ModelState`` (``s2t`` and ``img2task``; numpy leaves)
+    → the port's two state dicts, for ``cfg``'s ``net_g``, ``no_dropout``
+    and ``norm``."""
+    return {
+        "s2t": resnet_generator_state_dict_from_jax(
+            params["s2t"], _RESNET_BLOCKS[cfg.net_g], not cfg.no_dropout),
+        "img2task": unet_task_state_dict_from_jax(
+            {"params": params["img2task"],
+             "batch_stats": batch_stats.get("img2task")}, norm=cfg.norm)}
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:

@@ -155,9 +155,11 @@ def test_train_cli_defaults_to_cuda_and_never_falls_back(root, tmp_path,
                                   "--prefetch_depth", "--mesh_shape", "--zero",
                                   "--kitti_gt_dir", "--adam_eps"])
 def test_flags_of_later_slices_are_rejected(flag):
+    if flag == "--remat":  # ported since: a flag of cycle_gan
+        assert parse_args([flag]).remat and not parse_args([]).remat
+        return
     with pytest.raises(SystemExit):
-        parse_args([flag, "1"] if flag not in ("--remat", "--int8")
-                   else [flag])
+        parse_args([flag, "1"] if flag != "--int8" else [flag])
 
 
 def test_reference_flag_aliases():

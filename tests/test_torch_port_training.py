@@ -193,7 +193,7 @@ def test_instance_norm_backward_counts_no_cpu_launch_and_checks_device():
 
 
 def test_pool_underfill_returns_input_and_fills():
-    pool = ImagePool(4, (1, 2, 2))
+    pool = ImagePool(4)
     batch = torch.arange(3 * 4, dtype=torch.float32).reshape(3, 1, 2, 2)
     out = pool.query(batch)
     assert torch.equal(out, batch) and out is not batch
@@ -202,7 +202,7 @@ def test_pool_underfill_returns_input_and_fills():
 
 
 def test_pool_full_mixes_history():
-    pool = ImagePool(2, (1, 1, 1), generator=torch.Generator().manual_seed(0))
+    pool = ImagePool(2, generator=torch.Generator().manual_seed(0))
     pool.query(torch.ones(2, 1, 1, 1))
     assert pool.count == 2
     seen_history = False
@@ -216,7 +216,7 @@ def test_pool_full_mixes_history():
 
 
 def test_pool_size_zero_identity():
-    pool = ImagePool(0, (1, 1, 1))
+    pool = ImagePool(0)
     b = torch.ones(2, 1, 1, 1)
     assert pool.query(b) is b
     assert pool.count == 0
@@ -352,6 +352,14 @@ def test_checkpoint_round_trip(jax_cycle, tmp_path):
 
 
 def test_bf16_training_is_refused():
+    """Nothing refuses bf16 training any more (the name is kept): the model
+    builds with fp32 parameters and bf16 convs, and an unknown dtype is
+    still refused."""
     cfg = apply_model_defaults(Config(device="cpu", dtype="bfloat16", **SMALL))
-    with pytest.raises(NotImplementedError):
-        create_model(cfg)
+    state = create_model(cfg).init_state()
+    for net in state.nets.values():
+        assert all(p.dtype == torch.float32 for p in net.parameters())
+        assert {m.compute_dtype for m in net.modules()
+                if isinstance(m, torch.nn.Conv2d)} == {torch.bfloat16}
+    with pytest.raises(KeyError):
+        create_model(cfg.replace(dtype="float16")).init_state()
