@@ -89,6 +89,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    depth, listed in .txt files) at ngf 16, in a process of its own, then
    its resume: checkpoints of the 8 nets and colorized label visuals.
 
+17. S2D (``--model S2D``, new_multi) at the JAX package's full width
+   (DenseNet-169 G_2 with growth 32, blocks (6, 12, 32, 32), mid_nc 1024;
+   G_1 with 3 dual blocks; R_D; FD1–FD3), 192×576, fp32 with TF32 off. 17b:
+   the first step at batch 1 on the card and on the CPU from one init and
+   batch (oneDNN off): at adam_eps 1e-3 the losses within 1e-3 relative,
+   and each phase again on the card from the CPU's input, its losses
+   within 1e-3 and the net it updates by the three checks of the JAX
+   tests' ``_assert_params_close``; at 1e-8 each net's share of
+   sign-flipped first updates. Beside it, the S2D train CLI on
+   vKITTI-sized (1242×375) PNGs in a process of its own, then its resume
+   beside 17c/17d: bf16 and ``--remat`` first steps against fp32 at batch
+   8 (losses within 5e-2, resp. 1e-6; with --remat every BatchNorm moved
+   once; the peak memory of each). 17a:
+   the step timed at batch 1 and 8 (ms, img/s, peak memory) and one
+   profiled step each (idle share, the ten largest kernels). S2D runs no
+   InstanceNorm or epilogue kernel: the phase fails if either count moved.
+
 Every CLI process runs in a session of its own: it fails the phase if a
 process of that session (a loader worker, the forkserver, Python's resource
 tracker) still runs 10 s after the CLI ended. The script fails, too, if a
@@ -97,7 +114,8 @@ process it started still runs when it is about to print its result.
 Launch counts are zeroed just before phase 3 and read after phase 7 (the
 serving path), before phase 8 and after phase 9 (the training path),
 before phase 10 and after phase 12 (the pix2pix path), and before and
-after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net).
+after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net) and
+17 (S2D, where they must stay 0).
 The last three lines
 are a JSON object with every kernel's numbers, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -2016,6 +2034,396 @@ def phase_t2net(gen, cli):
     torch.cuda.empty_cache()
     return BATCH / dt
 
+# S2D at the ``try`` loader's size and the JAX package's full width
+# (DenseNet growth 32, blocks (6, 12, 32, 32), mid_nc 1024, g1_blocks 3)
+S2D_H, S2D_W = 192, 576
+S2D_WIDTHS = {}               # config overrides; empty: the full width
+S2D_BATCHES = (1, 8)
+S2D_NETS = ("G_1", "G_2", "R_D", "FD1", "FD2", "FD3")
+S2D_LR_DIVISOR = {"G_1": 5, "G_2": 3, "R_D": 2, "FD1": 4, "FD2": 4, "FD3": 4}
+S2D_CPU_LOSS_REL = 1e-3       # the card's first step against the CPU's
+
+
+def s2d_config(**kw):
+    from cycle_depth_estimation_tpu_torch.config import (Config,
+                                                         apply_model_defaults)
+
+    return apply_model_defaults(Config(**{"model": "S2D", "device": "cuda",
+                                          **S2D_WIDTHS, **kw}))
+
+
+def s2d_batch(n, seed=11):
+    """A seeded ``try`` batch on the CPU: images in [-1, 1], 28-class labels
+    with a band of sky (class 17) in the synthetic ones, depth in [-1, 1]
+    and ±1 bands."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    h, w = S2D_H, S2D_W
+    seg = torch.randint(0, 28, (n, h, w), generator=g)
+    seg[:, :h // 5] = 17
+    return {"img_syn": torch.rand(n, 3, h, w, generator=g) * 2 - 1,
+            "img_real": torch.rand(n, 3, h, w, generator=g) * 2 - 1,
+            "seg_l_syn": seg,
+            "seg_l_real": torch.randint(0, 28, (n, h, w), generator=g),
+            "dep_l_syn": torch.rand(n, 1, h, w, generator=g) * 2 - 1,
+            "depth_l_s": torch.randn(n, 4, h, w, generator=g).sign()}
+
+
+def on(batch, device):
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def s2d_params_close(got, want, net_lr):
+    """The three checks of the JAX tests' ``_assert_params_close`` on one
+    net's parameters ({key: CPU tensor} each): every leaf's max difference
+    ≤ 3·lr; over the net, the share past lr ≤ 3e-3 and the share past 1e-5
+    ≤ 8 % (as ``tests/test_torch_port_s2d_step.py`` applies them). Returns
+    (ok, numbers)."""
+    import torch
+
+    worst, past_lr, past_1e5, n = 0.0, 0, 0, 0
+    for key, a in got.items():
+        d = (a.double() - want[key].double()).abs()
+        worst = max(worst, float(d.max()) / net_lr)
+        past_lr += int((d > net_lr).sum())
+        past_1e5 += int((d > 1e-5).sum())
+        n += d.numel()
+    nums = {"max_over_lr": worst, "share_past_lr": past_lr / n,
+            "share_past_1e-5": past_1e5 / n}
+    return (worst <= 3.0 and nums["share_past_lr"] <= 3e-3
+            and nums["share_past_1e-5"] <= 0.08), nums
+
+
+S2D_UPDATES = {"g2": ("G_2",), "g1": ("G_1",), "rd_real": ("R_D",),
+               "rd_syn": ("R_D",), "fd": ("FD1", "FD2", "FD3")}
+
+
+def s2d_params(state):
+    return {k: {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+            for k, net in state.nets.items()}
+
+
+def s2d_snapshot(state, ctx, device="cpu"):
+    """The nets' and optimizers' state dicts and the step context (carried
+    tensors, metrics), copied to ``device``."""
+    import torch
+
+    def to(v):
+        if torch.is_tensor(v):
+            return v.detach().to(device, copy=True)
+        if isinstance(v, dict):
+            return {k: to(x) for k, x in v.items()}
+        return [to(x) for x in v]
+
+    return ({k: copy.deepcopy(n.state_dict()) for k, n in state.nets.items()},
+            {k: copy.deepcopy(o.state_dict())
+             for k, o in state.optimizers.items()}, to(ctx))
+
+
+def s2d_flip_shares(p0, a, b):
+    """Per net: the share of parameters whose first update has another sign
+    in ``a`` than in ``b`` (both from ``p0``)."""
+    out = {}
+    for name in S2D_NETS:
+        n = sum(v.numel() for v in p0[name].values())
+        out[name] = sum(int((a[name][k] - v).sign().ne(
+            (b[name][k] - v).sign()).sum()) for k, v in p0[name].items()) / n
+    return out
+
+
+def phase_s2d_card_vs_cpu():
+    """Phase 17b: the first full-width S2D step (batch 1) on the card and on
+    the CPU (oneDNN off) from one init and batch. At adam_eps 1e-3 the whole
+    step's losses within 1e-3 relative; then each phase again on the card
+    from the CPU's state and carried tensors before it: its losses within
+    1e-3 and the parameters of the net it updates by the three checks. At
+    the default 1e-8, each net's share of first updates whose sign differs
+    over the whole step. (Over the whole step the parameters are reported,
+    not held: from one state, fp32 puts the G_1 gradient of the g1 phase
+    2.5 % (card) and 1.9 % (CPU) from a float64 one in L2, and G_2's
+    rounding before it moves that further.)"""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    batch = s2d_batch(1)
+    threads = torch.get_num_threads()
+    shares = {}
+    for eps in (1e-3, 1e-8):
+        t = time.perf_counter()
+        with torch.backends.mkldnn.flags(enabled=False):
+            cpu_model = create_model(s2d_config(device="cpu", adam_eps=eps))
+            cpu_state = cpu_model.init_state()
+            p0 = s2d_params(cpu_state)
+            ctx = cpu_model._ctx(batch)
+            snaps = []
+            for _, phase in cpu_model.PHASES:
+                snaps.append(s2d_snapshot(cpu_state, ctx))
+                phase(cpu_model, cpu_state, ctx)
+            snaps.append(s2d_snapshot(cpu_state, ctx))
+        m_cpu = {k: float(v) for k, v in ctx["metrics"].items()}
+        cpu_after = s2d_params(cpu_state)
+        del cpu_model, cpu_state, ctx
+        cpu_s = time.perf_counter() - t
+        model = create_model(s2d_config(adam_eps=eps))
+        state = model.init_state()
+        state, m = model.train_step(state, on(batch, "cuda"))
+        m_card = {k: float(v) for k, v in m.items()}
+        card_after = s2d_params(state)
+        flips = s2d_flip_shares(p0, card_after, cpu_after)
+        rel = rel_loss_diffs(m_card, m_cpu)
+        log(f"phase 17b: adam_eps {eps:g}: whole step, card vs CPU ({threads}"
+            f" threads, {cpu_s:.1f} s) first-step losses, relative: "
+            + " ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+        if not all(math.isfinite(v) for v in (*m_card.values(),
+                                              *m_cpu.values())):
+            raise AssertionError(f"S2D losses: card {m_card}, CPU {m_cpu}")
+        if eps == 1e-8:
+            shares = flips
+            log("phase 17b: adam_eps 1e-8: sign-flipped first updates, card "
+                "vs CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                       flips.items()))
+            break
+        losses = [k for k in m_card if not k.startswith("acc")]
+        bad = {k: rel[k] for k in losses if rel[k] > S2D_CPU_LOSS_REL}
+        for name in S2D_NETS:
+            nums = s2d_params_close(card_after[name], cpu_after[name],
+                                    model.cfg.lr / S2D_LR_DIVISOR[name])[1]
+            log(f"phase 17b:   whole step {name}: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in nums.items())
+                + f"; sign-flipped updates {flips[name]:.2e}")
+        for i, (pname, phase) in enumerate(model.PHASES):
+            (nets, opts, pre), (nets_after, _, post) = snaps[i], snaps[i + 1]
+            for k, net in state.nets.items():
+                net.load_state_dict(nets[k])
+                state.optimizers[k].load_state_dict(opts[k])
+            cctx = s2d_snapshot(state, pre, "cuda")[2]
+            phase(model, state, cctx)
+            got = {k: float(v) for k, v in cctx["metrics"].items()
+                   if k not in pre["metrics"]}
+            prel = rel_loss_diffs(got, {k: float(post["metrics"][k])
+                                        for k in got})
+            bad.update({f"{pname}:{k}": v for k, v in prel.items()
+                        if not k.startswith("acc") and v > S2D_CPU_LOSS_REL})
+            after = s2d_params(state)
+            for name in S2D_UPDATES[pname]:
+                ok, nums = s2d_params_close(
+                    after[name], {n: nets_after[name][n] for n in after[name]},
+                    model.cfg.lr / S2D_LR_DIVISOR[name])
+                log(f"phase 17b:   phase {pname} from the CPU's input, "
+                    f"{name}: losses " + " ".join(
+                        f"{k} {v:.1e}" for k, v in prel.items()) + "; "
+                    + ", ".join(f"{k} {v:.3g}" for k, v in nums.items()))
+                if not ok:
+                    bad[f"{pname}:{name}"] = nums
+        del model, state
+        torch.cuda.empty_cache()
+        if bad:
+            raise AssertionError(f"S2D card vs CPU at adam_eps 1e-3: {bad}")
+    return shares
+
+
+def phase_s2d_compare(batch):
+    """Phases 17c and 17d at batch 8, from one init, cuDNN deterministic:
+    the fp32 step with and without --remat (losses within 1e-6 relative,
+    every BatchNorm's batch count equal — each moved once — and the running
+    statistics within 1e-4 relative plus 1e-5; the peak memory of each),
+    and the bf16 step against the fp32 one (losses within 5e-2, all
+    finite)."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for tag, kw in (("plain", {}), ("remat", {"remat": True}),
+                    ("bf16", {"dtype": "bfloat16"})):
+        model = create_model(s2d_config(**kw))
+        state = model.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = model.train_step(state, batch)
+        torch.cuda.synchronize()
+        stats = {f"{k}.{n}": b.detach().cpu().clone()
+                 for k, net in state.nets.items()
+                 for n, b in net.named_buffers()}
+        runs[tag] = ({k: float(v) for k, v in m.items()}, stats,
+                     torch.cuda.max_memory_allocated())
+        del model, state
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    (m0, st0, pk0), (m1, st1, pk1), (m16, _, pk16) = (
+        runs["plain"], runs["remat"], runs["bf16"])
+    rel_remat, rel_bf16 = rel_loss_diffs(m1, m0), rel_loss_diffs(m16, m0)
+    # the batch counts say how often each BatchNorm moved: equal, or the
+    # recompute moved one again; the statistics themselves follow the
+    # parameters, which the recompute's gradient sums round otherwise
+    counts_equal = all(torch.equal(st1[k], v) for k, v in st0.items()
+                       if k.endswith("num_batches_tracked"))
+    stats_diff = max(float((st1[k].double() - v.double()).abs().max())
+                     for k, v in st0.items())
+    stats_close = all(torch.allclose(st1[k], v, rtol=1e-4, atol=1e-5)
+                      for k, v in st0.items())
+    log(f"phase 17d: --remat vs plain, bs{batch['img_syn'].shape[0]}: "
+        "relative loss diffs " + " ".join(f"{k} {v:.1e}"
+                                          for k, v in rel_remat.items())
+        + f"; BatchNorm batch counts {'equal' if counts_equal else 'DIFFER'}"
+        f", running statistics max diff {stats_diff:.2e}; first-step peak "
+        f"memory plain {pk0 / 2 ** 30:.2f} GiB, --remat {pk1 / 2 ** 30:.2f} "
+        f"GiB")
+    log(f"phase 17c: bf16 vs fp32: first-step losses bf16 {m16}; relative: "
+        + " ".join(f"{k} {v:.1e}" for k, v in rel_bf16.items())
+        + f"; peak {pk16 / 2 ** 30:.2f} GiB")
+    if max(rel_remat.values()) > 1e-6 or not (counts_equal and stats_close):
+        raise AssertionError(f"S2D --remat step differs: losses {rel_remat},"
+                             f" statistics {stats_diff}")
+    if not all(math.isfinite(v) for v in m16.values()) or \
+            max(rel_bf16.values()) > BF16_LOSS_REL:
+        raise AssertionError(f"S2D bf16 vs fp32: {m16} against {m0}")
+    return {"peak_plain": pk0, "peak_remat": pk1, "peak_bf16": pk16}
+
+
+def write_try_files(root, n=4, size=(1242, 375), seed=12):
+    """vKITTI/KITTI-sized files: RGB PNGs, 8-bit label PNGs (vKITTI ids
+    0–22, Cityscapes ids 0–33, in 16-pixel blocks) and 16-bit depth PNGs,
+    listed in .txt files. Returns the train CLI's file arguments."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    w, h = size
+    args = []
+    for name, kind in (("img_source", "rgb"), ("img_target", "rgb"),
+                       ("lab_source", 23), ("lab_target", 34),
+                       ("depth_source", "depth")):
+        os.makedirs(os.path.join(root, name))
+        paths = []
+        for i in range(n):
+            if kind == "rgb":
+                arr = rng.randint(0, 256, (h, w, 3), np.uint8)
+            elif kind == "depth":
+                arr = rng.randint(0, 12000, (h, w)).astype(np.uint16)
+            else:
+                arr = np.kron(rng.randint(0, kind, (h // 16 + 1, w // 16 + 1)),
+                              np.ones((16, 16)))[:h, :w].astype(np.uint8)
+            paths.append(os.path.join(root, name, f"{i:06d}.png"))
+            Image.fromarray(arr).save(paths[-1])
+        listing = os.path.join(root, f"{name}.txt")
+        with open(listing, "w") as f:
+            f.write("\n".join(paths) + "\n")
+        args += [f"--{name}_file_train", listing]
+    return args
+
+
+def start_s2d_cli():
+    """Phase 17e's first run: ``python -m ...train --model S2D`` at full
+    width on vKITTI-sized files (4 steps, batch 1, 192×576), in a process
+    of its own (``run["cli"]``); the caller ends it."""
+    run = {"dir": tempfile.TemporaryDirectory()}
+    tmp = run["dir"].name
+    run["args"] = [
+        "--model", "S2D", *write_try_files(tmp), "--checkpoints_dir",
+        os.path.join(tmp, "ck"), "--name", "s2d", "--niter", "1",
+        "--niter_decay", "0", "--save_epoch_freq", "1", "--print_freq", "2",
+        "--display_freq", "2", "--num_threads", "2", "--device", "cuda",
+        *(f for k, v in S2D_WIDTHS.items() for f in (
+            f"--{k}", *map(str, v if isinstance(v, list) else [v])))]
+    run["cli"] = start_cli(TRAIN_CLI, run["args"])
+    return run
+
+
+def start_s2d_resume(run):
+    """What the first run wrote, then its resume for epoch 2 (2 steps) in a
+    process of its own (``run["resume"]``)."""
+    expr = os.path.join(run["dir"].name, "ck", "s2d")
+    want = [f"1_net_{n}.pth" for n in S2D_NETS] + [
+        "1_train_state.pth", "loss_log.txt", os.path.join("web", "index.html"),
+        os.path.join("web", "images", "epoch001_syn_seg_pre.png")]
+    missing = [f for f in want if not os.path.exists(os.path.join(expr, f))]
+    if missing:
+        raise AssertionError(f"S2D train CLI did not write {missing}")
+    run["resume"] = start_cli(
+        TRAIN_CLI, run["args"] + ["--continue_train", "--epoch_count", "2",
+                                  "--niter", "2", "--max_dataset_size", "2"])
+
+
+def end_s2d_resume(run):
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    run["resume_seconds"] = end_cli(run.pop("resume"),
+                                    "S2D train CLI resume")[1]
+    expr = os.path.join(run["dir"].name, "ck", "s2d")
+    st = torch.load(os.path.join(expr, "2_train_state.pth"),
+                    map_location="cpu", weights_only=True)
+    if st["step"] != 6:
+        raise AssertionError(f"S2D resume: step {st['step']}, want 6")
+    model = create_model(s2d_config(device="cpu"))
+    model.cfg = model.cfg.replace(checkpoints_dir=os.path.join(
+        run["dir"].name, "ck"), name="s2d")
+    model.load_networks(model.init_state(), 2)  # the six nets load back
+    run["dir"].cleanup()
+
+
+def phase_s2d():
+    """Phase 17: S2D at full width (the JAX defaults: DenseNet-169 G_2,
+    mid_nc 1024, 3 dual blocks in G_1), 192×576, fp32 with TF32 off. 17b
+    card vs CPU at batch 1, with the S2D train CLI on vKITTI-sized files
+    beside it; 17c/17d bf16 and --remat against fp32 at batch 8, beside
+    the CLI's resume; 17a the step timed at batch 1 and 8 and profiled.
+    S2D runs no InstanceNorm or epilogue kernel: their counts must not
+    move."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm, instance_norm_backward)
+    from cycle_depth_estimation_tpu_torch.ops.kernels.int8_epilogue import (
+        fused_in_epilogue)
+
+    counters = (instance_norm, instance_norm_backward, fused_in_epilogue)
+    for k in counters:
+        k.launches = 0
+    cfg = s2d_config()
+    if (cfg.dataset_mode, cfg.batch_size, cfg.fine_size) != ("try", 1, 192):
+        raise AssertionError(f"S2D defaults: {cfg}")
+    cli = start_s2d_cli()
+    try:
+        flips = phase_s2d_card_vs_cpu()
+    finally:
+        cli["seconds"] = end_cli(cli.pop("cli"), "S2D train CLI")[1]
+    start_s2d_resume(cli)
+    try:
+        b8 = on(s2d_batch(S2D_BATCHES[-1], seed=13), "cuda")
+        peaks = phase_s2d_compare(b8)
+    finally:
+        if "resume" in cli:
+            end_s2d_resume(cli)
+    out = {"flips_eps_1e-8": flips, **peaks}
+    for n in S2D_BATCHES:
+        batch = b8 if n == S2D_BATCHES[-1] else on(s2d_batch(n), "cuda")
+        model = create_model(s2d_config())
+        state = model.init_state()
+        state, dt, peak = timed_steps(model, state, batch)
+        log(f"phase 17a: S2D train step bs{n} {S2D_H}x{S2D_W} fp32 (TF32 "
+            f"off): {dt * 1e3:.1f} ms/step = {n / dt:.2f} img/s; peak memory "
+            f"{peak / 2 ** 30:.2f} GiB")
+        profile_step(f"phase 17a bs{n}", model, state, batch)
+        out[f"bs{n}"] = {"ms": dt * 1e3, "img_s": n / dt, "peak": peak}
+        del model, state, batch
+        torch.cuda.empty_cache()
+    moved = {k.__name__: k.launches for k in counters if k.launches}
+    if moved:
+        raise AssertionError(f"S2D launched InstanceNorm or epilogue "
+                             f"kernels: {moved}")
+    log(f"phase 17 ok: no InstanceNorm or epilogue launch; python -m "
+        f"cycle_depth_estimation_tpu_torch.train --model S2D (full width, "
+        f"vKITTI-sized PNGs, 4 steps) {cli['seconds']:.1f} s, its resume "
+        f"(2 steps) {cli['resume_seconds']:.1f} s; the six nets load back")
+    return out
+
 
 LOADERS = {  # name: the train CLI's loader flags
     "serial": ["--num_threads", "0"],
@@ -2190,6 +2598,7 @@ def main() -> int:
     finally:
         if "resume" in seg_cli:
             end_cli(seg_cli.pop("resume"), "SegCycle train CLI resume")
+    s2d = phase_s2d()
     later = {"bf16_and_fp32_training": bf16_train,
              "remat_and_plain": remat,
              "seg_cycle": seg_cycle, "t2net": t2net}
@@ -2250,6 +2659,9 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f}" for k, v in ips_bf16_train.items())
         + f" img/s; SegCycle fp32 {ips_seg:.1f}, bf16 {ips_seg16:.1f} img/s "
         f"and T2Net fp32 {ips_t2net:.1f} img/s (bs{BATCH}, {SEG_H}x{SEG_W}); "
+        "S2D fp32 " + ", ".join(f"bs{n} {s2d[f'bs{n}']['img_s']:.2f}"
+                                for n in S2D_BATCHES)
+        + f" img/s ({S2D_H}x{S2D_W}); "
         "kernel "
         "ms are sums over the calls of one forward (23: instance_norm in "
         "bf16, int8_epilogue in bf16 up mode) or of one fp32 CycleGAN train "

@@ -1,6 +1,6 @@
 """Config of the port: the subset of the JAX package's ``Config`` that the
-test CLI, the CycleGAN, pix2pix, SegCycle and T2Net (``seg``) models, the
-data layer and the train CLI read, with the same field
+test CLI, the CycleGAN, pix2pix, SegCycle, T2Net (``seg``) and S2D models,
+the data layer and the train CLI read, with the same field
 names, defaults, reference flag aliases (``--loadSize``, ``--netD``,
 ``--lambda_A`` …) and two-phase parse (base flags, then per-model defaults
 for flags the user did not set). ``device`` is new: the port runs on
@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, get_args, get_origin, get_type_hints
 
 import torch
 
@@ -87,6 +87,8 @@ class Config:
     niter_decay: int = 5
     beta1: float = 0.5
     lr: float = 2e-4
+    adam_eps: float = 1e-8          # S2D's Adam eps (1e-3 damps the first
+                                    # step's sign(g)·lr in parity checks)
     no_lsgan: bool = False
     pool_size: int = 50
     lr_policy: str = "lambda"
@@ -99,13 +101,20 @@ class Config:
                                     # (cycle_gan_model.py:151-160)
     lambda_l1: float = 100.0        # pix2pix --lambda_L1
     worker_procs: int = 0           # > 0: loader processes instead of threads
+    # S2D (new_multi): G_1's residual blocks and G_2's DenseNet trunk; None
+    # is the reference's DenseNet-169 width
+    g1_blocks: int = 3
+    dense_block_config: Optional[List[int]] = None  # None: (6, 12, 32, 32)
+    dense_growth_rate: Optional[int] = None         # None: 32
+    s2d_mid_nc: Optional[int] = None                # None: 1024
     # test options
     results_dir: str = "./results/"
     aspect_ratio: float = 1.0
     num_test: int = 50
     dtype: str = "float32"          # compute dtype: float32 | bfloat16
     remat: bool = False             # cycle_gan: recompute the generator
-                                    # forwards in backward (checkpoint)
+                                    # forwards in backward (checkpoint);
+                                    # S2D: the G_2 and R_D applications
     seed: int = 0
     device: str = "cuda"            # 'cuda' | 'cpu'
     pth_path: str = ""              # reference generator .pth; "" = random init
@@ -128,6 +137,7 @@ MODEL_DEFAULTS = {
     "test": dict(no_dropout=True, dataset_mode="single", is_train=False),
     "seg": dict(no_dropout=True, dataset_mode="synthia"),
     "seg_cycle": dict(no_dropout=True, dataset_mode="synthia"),
+    "S2D": dict(dataset_mode="try", batch_size=1, fine_size=192),
 }
 
 
@@ -146,6 +156,7 @@ def parse_args(argv: Optional[List[str]] = None, is_train: bool = True) -> Confi
     parser = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     base = Config(is_train=is_train)
+    hints = get_type_hints(Config)
     for f in dataclasses.fields(Config):
         aliases = ["--" + ref for ref, fld in _FLAG_ALIASES.items()
                    if fld == f.name]
@@ -153,6 +164,15 @@ def parse_args(argv: Optional[List[str]] = None, is_train: bool = True) -> Confi
         if isinstance(default, bool):
             parser.add_argument("--" + f.name, *aliases, dest=f.name,
                                 action="store_true", default=None)
+        elif default is None:  # Optional[int] or Optional[List[int]]
+            (inner,) = (a for a in get_args(hints[f.name]) if a is not type(None))
+            if get_origin(inner) is list:
+                parser.add_argument("--" + f.name, *aliases, dest=f.name,
+                                    type=get_args(inner)[0], nargs="*",
+                                    default=None)
+            else:
+                parser.add_argument("--" + f.name, *aliases, dest=f.name,
+                                    type=inner, default=None)
         else:
             parser.add_argument("--" + f.name, *aliases, dest=f.name,
                                 type=type(default), default=None)

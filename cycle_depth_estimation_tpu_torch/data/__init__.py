@@ -1,7 +1,7 @@
 """Data layer: dataset registry and loader factory (the JAX package's
 ``data/__init__.py``). Batches hold NCHW float32 tensors (uint8 at
 ``load_size`` with ``device_aug``, finished by ``device_transforms``), NHW
-int64 label maps (``synthia``) and lists of paths. Loaders are in
+int64 label maps (``synthia``, ``try``) and lists of paths. Loaders are in
 ``loader.py``."""
 
 from __future__ import annotations
@@ -21,9 +21,19 @@ def register_dataset(name: str):
     return deco
 
 
+# the datasets whose samples ``device_transforms`` can finish on the device
+# (uint8 at load_size); the domain loaders preprocess on the host
+DEVICE_AUG_MODES = ("unaligned", "aligned", "single")
+
+
 def create_dataset(cfg, phase: str = None):
     from . import datasets, domain_datasets  # noqa: F401  (register them)
 
+    if cfg.device_aug and cfg.dataset_mode not in DEVICE_AUG_MODES:
+        raise ValueError(
+            f"--device_aug supports dataset_mode {DEVICE_AUG_MODES}, not "
+            f"[{cfg.dataset_mode}] — that loader ships preprocessed float "
+            f"batches which the device augmenter would re-normalize")
     if cfg.dataset_mode not in _DATASET_REGISTRY:
         raise KeyError(f"dataset [{cfg.dataset_mode}] not registered; "
                        f"available: {sorted(_DATASET_REGISTRY)}")

@@ -1,6 +1,6 @@
-"""The SYNTHIA↔Cityscapes domain-pair dataset (``synthia``; the JAX
-package's ``data/domain_datasets.py``, reference
-datasets/dataset_synthia.py:60-258).
+"""The domain-pair datasets (the JAX package's ``data/domain_datasets.py``):
+``synthia`` (SYNTHIA↔Cityscapes, reference datasets/dataset_synthia.py:60-258)
+and ``try`` (vKITTI→KITTI for S2D, reference new_multi/try_data.py:70-376).
 
 A sample holds a source (SYNTHIA) image, its labels and its depth, and a
 target (Cityscapes) image and its labels, all at 640×192 (w×h) at the
@@ -18,6 +18,9 @@ Samples: ``img_source``/``img_target`` CHW float32 in [-1, 1],
 ``lab_source``/``lab_target`` HW int64, ``depth_source`` 1HW float32, and
 the two image paths. Each ``*_file_{train,test}`` option names a folder or
 a ``.txt`` list of paths.
+
+``try`` works at 576×192 at the default ``fine_size`` 192 (3:1); its
+samples are described in ``TryDataset``.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ from PIL import Image
 from . import register_dataset
 from .datasets import _Base, _chw
 from .image_folder import make_dataset, make_dataset_txt
-from .preprocess import (REAL_ID_TO_TRAINID_255, SYN_ID_TO_TRAINID,
-                         clip_depth_8000, remap_sequential)
+from ..utils.metrics import _resize_linear
+from .preprocess import (REAL_ID_TO_TRAINID_0, REAL_ID_TO_TRAINID_255,
+                         SYN_ID_TO_TRAINID, clip_depth_8000, depth_bands,
+                         label_edges, remap_sequential)
 from .transforms import normalize, to_array
 
 
@@ -111,3 +116,126 @@ class SynthiaDataset(_Base):
             "img_source_paths": self.img_source_paths[item % n_src],
             "img_target_paths": self.img_target_paths[index],
         }
+
+
+@register_dataset("try")
+class TryDataset(_Base):
+    """vKITTI (image, labels, 16-bit depth) → KITTI (image, labels), the
+    S2D loader. Images are resized bilinear to ``size``; labels keep their
+    size until the edge maps are drawn from them.
+
+    Train phase: one joint flip/rotation (``paired_augment``) of the
+    synthetic image, labels and depth, another of the real image and
+    labels; vKITTI ids 0 → 7, then the 34-class remap with ignore 0; real
+    ids − 6, negatives → 0; ``label_edges`` of both at their own size,
+    linear-resized (``_resize_linear``) to ``size``; the labels
+    nearest-resized; ``depth_bands`` in train mode. Keys: ``img_syn``,
+    ``img_real`` (3HW), ``dep_l_syn`` (1HW), ``depth_l_s`` (4HW),
+    ``seg_l_syn``, ``seg_l_real`` (HW int64), ``seg_e_syn``, ``seg_e_real``
+    (1HW), the two image paths and ``name``.
+
+    Test phase: no augmentation; the synthetic labels nearest-resized
+    first, their edges from the ids before the remap, ``depth_bands`` in
+    eval mode; no real labels; ``f_name``/``l_name``, the KITTI
+    ``depth_selection`` file-name slices of the real path."""
+
+    @property
+    def size(self):
+        """(w, h)."""
+        h = self.cfg.fine_size if self.cfg.fine_size != 256 else 192
+        return h * 3, h
+
+    def __init__(self, cfg, phase: str):
+        super().__init__(cfg)
+        self.phase = phase
+        suffix = "train" if phase == "train" else "test"
+        attrs = [("img_syn", "img_source"), ("img_real", "img_target"),
+                 ("lab_syn", "lab_source"), ("depth", "depth_source")]
+        if phase == "train":
+            attrs.append(("lab_real", "lab_target"))
+        for attr, opt in attrs:
+            setattr(self, f"{attr}_paths",
+                    _paths(getattr(cfg, f"{opt}_file_{suffix}")))
+
+    def __len__(self):
+        return max(len(self.img_syn_paths), len(self.img_real_paths))
+
+    def __getitem__(self, item: int) -> Dict[str, object]:
+        rng = self._rng(item)
+        w, h = self.size
+        index = int(rng.integers(0, len(self.img_real_paths)))
+        img_syn_path = self.img_syn_paths[item % len(self.img_syn_paths)]
+        img_real_path = self.img_real_paths[index]
+        img_syn, img_real = (
+            Image.open(p).convert("RGB").resize((w, h), Image.BILINEAR)
+            for p in (img_syn_path, img_real_path))
+        depth = Image.open(self.depth_paths[
+            item % len(self.depth_paths)]).resize((w, h), Image.BILINEAR)
+        lab_syn = Image.open(self.lab_syn_paths[
+            item % len(self.lab_syn_paths)])
+
+        def img(im):
+            return _chw(normalize(to_array(im)).astype(np.float32))
+
+        def labels(a):
+            return torch.from_numpy(a.astype(np.int64))
+
+        def edges(e):
+            return torch.from_numpy(e.astype(np.float32)[None])
+
+        if self.phase != "train":
+            lab_raw = np.array(lab_syn.resize((w, h), Image.NEAREST))
+            lab = lab_raw.astype(np.float32)
+            lab[lab == 0] = 7
+            full, bands = depth_bands(np.array(depth), train=False)
+            return {
+                "img_syn": img(img_syn), "img_real": img(img_real),
+                "dep_l_syn": _chw(full), "depth_l_s": _chw(bands),
+                "seg_l_syn": labels(remap_sequential(lab,
+                                                     REAL_ID_TO_TRAINID_0)),
+                "seg_e_syn": edges(label_edges(lab_raw)),
+                "img_source_paths": img_syn_path,
+                "img_target_paths": img_real_path,
+                "f_name": img_real_path[-56:-29],
+                "l_name": img_real_path[-24:],
+            }
+
+        lab_real = Image.open(self.lab_real_paths[index])
+        img_syn, lab_syn, depth = paired_augment(
+            rng, [img_syn, lab_syn, depth],
+            [Image.BILINEAR, Image.NEAREST, Image.NEAREST])
+        img_real, lab_real = paired_augment(
+            rng, [img_real, lab_real], [Image.BILINEAR, Image.NEAREST])
+        lab_s = np.array(lab_syn).astype(np.float32)
+        lab_s[lab_s == 0] = 7
+        lab_s = remap_sequential(lab_s, REAL_ID_TO_TRAINID_0)
+        lab_r = np.array(lab_real).astype(np.float32) - 6
+        lab_r[lab_r < 0] = 0
+        full, bands = depth_bands(np.array(depth), train=True)
+        return {
+            "img_syn": img(img_syn), "img_real": img(img_real),
+            "dep_l_syn": _chw(full), "depth_l_s": _chw(bands),
+            "seg_l_syn": labels(_resize_labels(lab_s.astype(np.uint8),
+                                               (w, h))),
+            "seg_l_real": labels(_resize_labels(lab_r.astype(np.uint8),
+                                                (w, h))),
+            "seg_e_syn": edges(_resize_map(label_edges(lab_s), (w, h))),
+            "seg_e_real": edges(_resize_map(label_edges(lab_r), (w, h))),
+            "img_source_paths": img_syn_path,
+            "img_target_paths": img_real_path,
+            "name": img_real_path[-14:],
+        }
+
+
+def _resize_labels(lab: np.ndarray, size) -> np.ndarray:
+    """Nearest-neighbour resize of a uint8 label map to ``size`` (w, h).
+    The reference passes ``cv2.INTER_NEAREST`` as cv2.resize's ``dst`` and
+    so interpolates labels bilinearly (try_data.py:224-225); that is not
+    reproduced, as in the JAX package."""
+    return np.array(Image.fromarray(lab).resize(size, Image.NEAREST))
+
+
+def _resize_map(m: np.ndarray, size) -> np.ndarray:
+    """cv2's INTER_LINEAR resize of an edge map to ``size`` (w, h), float32
+    (reference try_data.py:219-220)."""
+    return _resize_linear(m.astype(np.float32), size).astype(np.float32)

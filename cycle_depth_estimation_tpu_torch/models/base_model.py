@@ -8,8 +8,9 @@ count, and a train step updates it in place: eager PyTorch has no use for
 the copy, and the parameters and Adam moments of a model are its largest
 buffers.
 
-- ``make_optimizer``: Adam with betas (beta1, 0.999) and eps 1e-8, the
-  update of the JAX package's ``optax.adam`` (and of the reference).
+- ``make_optimizer``: Adam with betas (beta1, 0.999) and eps 1e-8 (S2D
+  passes its ``adam_eps``), the update of the JAX package's ``optax.adam``
+  (and of the reference).
 - ``update_learning_rate``: the epoch LR policy (``lambda``, ``step``,
   ``cosine``, ``plateau``), the plateau state kept on the host and not
   checkpointed, as in the JAX package.
@@ -45,11 +46,11 @@ class ModelState:
 
 
 def make_optimizer(params: Iterable[torch.Tensor], lr: float,
-                   beta1: float) -> torch.optim.Adam:
+                   beta1: float, eps: float = 1e-8) -> torch.optim.Adam:
     """Adam as the reference builds it (betas=(beta1, 0.999), eps=1e-8;
     e.g. models/cycle_gan_model.py:66-69). Its first step moves each
-    parameter by about sign(g)·lr."""
-    return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=1e-8)
+    parameter by lr·g/(|g| + eps), about sign(g)·lr at eps 1e-8."""
+    return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=eps)
 
 
 class BaseModel:

@@ -17,6 +17,12 @@ fp32 accumulator before the one rounding, where the JAX layer rounds the
 conv, adds the fp32 bias and rounds again: one bf16 rounding apart.
 ``BatchNorm`` returns its input's dtype (the JAX ``Norm(dtype=…)``) with
 fp32 statistics; ``PReLU`` casts its α to the input's dtype.
+
+``avg_pool`` and ``resize_bilinear`` are the JAX functions of those names.
+The JAX ``resize_bilinear_mm`` (chosen by ``prefer_mm`` or the
+``CDE_RESIZE_MM`` variable) computes the same two-tap interpolation as
+dense matmuls, a layout for the TPU's matrix unit; ``F.interpolate`` is
+both forms here, and takes neither switch.
 """
 
 from __future__ import annotations
@@ -83,6 +89,22 @@ class PReLU(nn.PReLU):
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     """NCHW reflection padding (= ``nn.ReflectionPad2d``)."""
     return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+
+def avg_pool(x: torch.Tensor, window: int,
+             stride: Optional[int] = None) -> torch.Tensor:
+    """``nn.AvgPool2d`` without padding (the JAX ``avg_pool`` as its
+    callers use it)."""
+    return F.avg_pool2d(x, window, stride or window)
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of NCHW ``x`` to ``size`` (H, W), as torch's
+    ``F.interpolate`` computes it: endpoint-aligned with ``align_corners``,
+    else half-pixel centres, and no antialiasing on a downscale."""
+    return F.interpolate(x, size=tuple(size), mode="bilinear",
+                         align_corners=align_corners)
 
 
 class InstanceNorm(nn.Module):

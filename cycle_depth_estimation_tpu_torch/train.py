@@ -14,12 +14,19 @@ reference train.py:10-81)::
         --lab_source_file_train … --lab_target_file_train … \\
         --depth_source_file_train … [--*_file_test …]
     python -m cycle_depth_estimation_tpu_torch.train --model seg …  (T2Net)
+    python -m cycle_depth_estimation_tpu_torch.train --model S2D \
+        --img_source_file_train … --img_target_file_train … \
+        --lab_source_file_train … --lab_target_file_train … \
+        --depth_source_file_train … [--dense_block_config 6 12 32 32 \
+        --dense_growth_rate 32 --s2d_mid_nc 1024 --g1_blocks 3]
 
 ``seg_cycle`` and ``seg`` read the ``synthia`` dataset (their default):
 SYNTHIA images, labels and depth against Cityscapes images and labels,
-192×640 at the default ``fine_size``. ``--dtype bfloat16`` trains every
-model in bf16 with fp32 parameters; ``--remat`` (``cycle_gan``) recomputes
-the generator forwards in backward.
+192×640 at the default ``fine_size``. ``S2D`` reads ``try``: vKITTI images,
+labels and 16-bit depth against KITTI images and labels, 192×576, batch 1.
+``--dtype bfloat16`` trains every model in bf16 with fp32 parameters;
+``--remat`` recomputes the generator forwards in backward (``cycle_gan``)
+or the G_2 and R_D applications (``S2D``).
 
 Epochs ``epoch_count … niter + niter_decay``: a train step per batch, with
 losses printed and logged every ``print_freq`` images, visuals saved every

@@ -19,7 +19,11 @@ takes instance norm only; the port's converter takes BatchNorm too):
   ``running_mean``/``running_var``. flax keeps no batch count, so
   ``num_batches_tracked`` is left out, as in a pre-0.4.1 reference ``.pth``;
 - PReLU: the network's one ``prelu_alpha`` → every state-dict key of the
-  shared module (``….weight`` under each block that holds it).
+  shared module (``….weight`` under each block that holds it); a net with
+  ``site_prelus`` (S2D's ``SDiscriminator``) names each α.
+
+``s2d_state_dicts_from_jax`` is the inverse of ``import_g1``,
+``import_general_net``, ``import_rdep`` and ``import_sdiscriminator``.
 
 The seg nets (T2Net's ``UNetGenerator``, SegCycle's ``UNetEncoder`` and
 ``UNetDecoder``) have no JAX importer and no reference ``.pth`` here: their
@@ -41,6 +45,7 @@ from ..models.encoder_decoder import UNetDecoder, UNetEncoder
 from ..models.networks import (_RESNET_BLOCKS, _UNET_DOWNS,
                                NLayerDiscriminator, PixelDiscriminator,
                                ResnetGenerator, UnetGenerator)
+from ..models.s2d_networks import s2d_nets
 from ..models.seg_network import UNetGenerator
 from ..ops.layers import PReLU
 
@@ -106,9 +111,12 @@ def _state_dict_from_jax(shell: nn.Module, params: Mapping[str, Any],
         sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _t(p["scale"]), _t(p["bias"])
         sd[f"{prefix}.running_mean"] = _t(s["mean"])
         sd[f"{prefix}.running_var"] = _t(s["var"])
+    alphas = {m: site for site, m in
+              getattr(shell, "site_prelus", dict)().items()}
     for name, module in shell.named_modules(remove_duplicate=False):
         if isinstance(module, PReLU):
-            sd[f"{name}.weight"] = _t(params["prelu_alpha"])
+            sd[f"{name}.weight"] = _t(params[alphas.get(module,
+                                                        "prelu_alpha")])
     return sd
 
 
@@ -297,6 +305,18 @@ def seg_state_dicts_from_jax(params: Mapping[str, Any],
         "img2task": unet_task_state_dict_from_jax(
             {"params": params["img2task"],
              "batch_stats": batch_stats.get("img2task")}, norm=cfg.norm)}
+
+
+def s2d_state_dicts_from_jax(variables: Mapping[str, Any], cfg
+                             ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """The JAX S2D nets' variables, ``{net: {"params", "batch_stats"}}`` for
+    any of ``G_1``, ``G_2``, ``R_D`` and ``FD1``–``FD3`` (numpy leaves) →
+    the port's state dicts of those nets (reference names), at ``cfg``'s
+    widths."""
+    with torch.device("meta"):
+        shells = s2d_nets(cfg)
+    return {k: _state_dict_from_jax(shells[k], *_variables(v))
+            for k, v in variables.items()}
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:

@@ -153,10 +153,15 @@ def test_train_cli_defaults_to_cuda_and_never_falls_back(root, tmp_path,
 
 @pytest.mark.parametrize("flag", ["--remat", "--parallel", "--int8",
                                   "--prefetch_depth", "--mesh_shape", "--zero",
-                                  "--kitti_gt_dir", "--adam_eps"])
+                                  "--kitti_gt_dir", "--adam_eps", "--eval_freq",
+                                  "--records_file"])
 def test_flags_of_later_slices_are_rejected(flag):
     if flag == "--remat":  # ported since: a flag of cycle_gan
         assert parse_args([flag]).remat and not parse_args([]).remat
+        return
+    if flag == "--adam_eps":  # ported since: a flag of S2D
+        assert parse_args([flag, "1e-3"]).adam_eps == 1e-3
+        assert parse_args([]).adam_eps == 1e-8
         return
     with pytest.raises(SystemExit):
         parse_args([flag, "1"] if flag != "--int8" else [flag])
