@@ -114,8 +114,25 @@ process it started still runs when it is about to print its result.
 Launch counts are zeroed just before phase 3 and read after phase 7 (the
 serving path), before phase 8 and after phase 9 (the training path),
 before phase 10 and after phase 12 (the pix2pix path), and before and
-after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net) and
-17 (S2D, where they must stay 0).
+after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net),
+17 (S2D, where they must stay 0) and 18b (rf_lw).
+18. RefineNet-LW (``--model rf_lw``) at the JAX package's full width
+   (ResNetLW-101, four segd heads, 28 + 1 classes), 192×576. 18a (run
+   right after phase 1b, with the other kernel checks): both InstanceNorm
+   kernels at the four adapter planes (256×48×144 down to 2048×6×18),
+   fp32 and bf16, batch 1 and 8, with kernel, plain, library and bound
+   times. 18b: at batch 1 and 8, fp32 with TF32 off, one step
+   through the kernels (every InstanceNorm call held against its plain
+   version) against the plain versions and F.instance_norm, by phase 8's
+   yardstick, 8 + 8 launches a step, the unused ``_s`` adapters unmoved;
+   an rf_lw7 step and a bf16 step (losses within 5e-2 of fp32); the step
+   timed and profiled at batch 1 and 8. 18c, beside 18b's checks: the
+   train CLI ``--model rf_lw --kitti_gt_dir … --eval_freq 1`` on a
+   synthetic try tree for 2 steps (a records line each step, with every
+   KITTI metric), then ``save_kitti`` from its ``latest`` checkpoint and
+   for a small random S2D, and ``eval_kitti`` on the rf_lw maps, each in a
+   process of its own.
+
 The last three lines
 are a JSON object with every kernel's numbers, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -435,17 +452,23 @@ def phase_build():
         f"-> {[str(p.name) for p in paths.values()]}")
 
 
-def phase_instance_norm(gen):
+def phase_instance_norm(gen, shapes=None, tag="1", per="forward",
+                        total_dtype="bfloat16"):
+    """The forward kernel against its plain version at ``shapes`` {plane:
+    calls} (default the generator's), fp32 and bf16, with kernel, plain,
+    library and bound times; returns the sums over the calls of one
+    ``per`` in ``total_dtype``, and the largest error."""
     import torch
     import torch.nn.functional as F
 
     from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
         instance_norm, plain_instance_norm)
 
+    shapes = IN_SHAPES if shapes is None else shapes
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for shape, calls in IN_SHAPES.items():
+        for shape, calls in shapes.items():
             x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1
                  ).to(dtype)
             want = plain_instance_norm(x)
@@ -467,19 +490,21 @@ def phase_instance_norm(gen):
             t_e = ms_per_call(lambda: instance_norm(x))
             nbytes = 2 * x.numel() * x.element_size()
             t_b, _ = bound(nbytes, IN_FLOPS_PER_ELEM * x.numel())
-            log(f"phase 1: instance_norm {tuple(shape)} {str(dtype)[6:]}: "
-                f"max_abs_err {float(err.max()):.3g} kernel {t_k:.4f} ms "
-                f"plain {t_p:.4f} ms F.instance_norm {t_l:.4f} ms "
-                f"bound {t_b:.4f} ms; eager back-to-back {t_e:.4f} ms "
-                f"(x{calls} per forward)")
-            if dtype == torch.bfloat16:  # the entry() dtype is the headline
+            log(f"phase {tag}: instance_norm {tuple(shape)} "
+                f"{str(dtype)[6:]}: max_abs_err {float(err.max()):.3g} "
+                f"kernel {t_k:.4f} ms plain {t_p:.4f} ms F.instance_norm "
+                f"{t_l:.4f} ms bound {t_b:.4f} ms; eager back-to-back "
+                f"{t_e:.4f} ms (x{calls} per {per})")
+            if str(dtype)[6:] == total_dtype:  # the headline dtype
                 totals["ms"] += calls * t_k
                 totals["plain_ms"] += calls * t_p
                 totals["library_ms"] += calls * t_l
                 totals["bytes"] += calls * nbytes
                 totals["flops"] += calls * IN_FLOPS_PER_ELEM * x.numel()
             del x, xs, want, got
-    log(f"phase 1 ok: instance_norm per bf16 forward {totals['ms']:.4f} ms")
+    log(f"phase {tag} ok: instance_norm per {total_dtype} {per} "
+        f"{totals['ms']:.4f} ms (plain {totals['plain_ms']:.4f}, "
+        f"F.instance_norm {totals['library_ms']:.4f})")
     return totals, max_err
 
 
@@ -493,7 +518,10 @@ def profiled_device_ms(fn, inputs, iters=12):
     for args in inputs:
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # CPU and CUDA, as profile_step: a CUDA-only session that follows
+    # CPU+CUDA ones in one process recorded no device time on the H100
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for i in range(iters):
             fn(*inputs[i % len(inputs)])
         torch.cuda.synchronize()
@@ -504,7 +532,12 @@ def profiled_device_ms(fn, inputs, iters=12):
     return busy / 1e3 / iters
 
 
-def phase_instance_norm_backward(gen):
+def phase_instance_norm_backward(gen, shapes=None, tag="1b",
+                                 per="CycleGAN step"):
+    """The backward kernel against its plain version at ``shapes`` {plane:
+    calls} (default a CycleGAN step's), fp32 and bf16, with kernel, plain,
+    library and bound times; returns the sums over the calls of one fp32
+    ``per``, and the largest error."""
     import torch
     import torch.nn.functional as F
 
@@ -512,10 +545,11 @@ def phase_instance_norm_backward(gen):
         instance_norm_backward, plain_instance_norm_backward,
         plain_instance_norm_stats)
 
+    shapes = TRAIN_IN_SHAPES if shapes is None else shapes
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for shape, calls in TRAIN_IN_SHAPES.items():
+        for shape, calls in shapes.items():
             x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1
                  ).to(dtype)
             dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -555,11 +589,11 @@ def phase_instance_norm_backward(gen):
             if t_k < t_b:
                 raise AssertionError(f"in_bwd {shape}: {t_k} ms is under its "
                                      f"bound of {t_b} ms: wrong count or timer")
-            log(f"phase 1b: instance_norm_bwd {tuple(shape)} "
+            log(f"phase {tag}: instance_norm_bwd {tuple(shape)} "
                 f"{str(dtype)[6:]}: max_abs_err {float(err.max()):.3g} kernel "
                 f"{t_k:.4f} ms plain {t_p:.4f} ms autograd F.instance_norm "
                 f"backward {t_l:.4f} ms bound {t_b:.4f} ms "
-                f"({t_k / t_b:.2f}x) (x{calls} per step)")
+                f"({t_k / t_b:.2f}x) (x{calls} per {per})")
             if dtype == torch.float32:  # the train step's dtype
                 totals["ms"] += calls * t_k
                 totals["plain_ms"] += calls * t_p
@@ -567,8 +601,9 @@ def phase_instance_norm_backward(gen):
                 totals["bytes"] += calls * nbytes
                 totals["flops"] += calls * flops
             del x, dy, stats, want, got, ins, lib_ins
-    log(f"phase 1b ok: instance_norm_bwd per fp32 train step "
-        f"({TRAIN_PER_STEP} calls) {totals['ms']:.4f} ms")
+    log(f"phase {tag} ok: instance_norm_bwd per fp32 {per} "
+        f"({sum(shapes.values())} calls) {totals['ms']:.4f} ms (plain "
+        f"{totals['plain_ms']:.4f}, autograd {totals['library_ms']:.4f})")
     return totals, max_err
 
 
@@ -2052,14 +2087,14 @@ def s2d_config(**kw):
                                           **S2D_WIDTHS, **kw}))
 
 
-def s2d_batch(n, seed=11):
-    """A seeded ``try`` batch on the CPU: images in [-1, 1], 28-class labels
-    with a band of sky (class 17) in the synthetic ones, depth in [-1, 1]
-    and ±1 bands."""
+def s2d_batch(n, seed=11, size=None):
+    """A seeded ``try`` batch on the CPU at ``size`` (H, W; default S2D's):
+    images in [-1, 1], 28-class labels with a band of sky (class 17) in the
+    synthetic ones, depth in [-1, 1] and ±1 bands."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    h, w = S2D_H, S2D_W
+    h, w = size or (S2D_H, S2D_W)
     seg = torch.randint(0, 28, (n, h, w), generator=g)
     seg[:, :h // 5] = 17
     return {"img_syn": torch.rand(n, 3, h, w, generator=g) * 2 - 1,
@@ -2284,10 +2319,11 @@ def phase_s2d_compare(batch):
     return {"peak_plain": pk0, "peak_remat": pk1, "peak_bf16": pk16}
 
 
-def write_try_files(root, n=4, size=(1242, 375), seed=12):
+def write_try_files(root, n=4, size=(1242, 375), seed=12, names=None):
     """vKITTI/KITTI-sized files: RGB PNGs, 8-bit label PNGs (vKITTI ids
     0–22, Cityscapes ids 0–33, in 16-pixel blocks) and 16-bit depth PNGs,
-    listed in .txt files. Returns the train CLI's file arguments."""
+    listed in .txt files, named ``names[i]`` (default ``{i:06d}.png``).
+    Returns the train CLI's file arguments."""
     import numpy as np
     from PIL import Image
 
@@ -2307,7 +2343,8 @@ def write_try_files(root, n=4, size=(1242, 375), seed=12):
             else:
                 arr = np.kron(rng.randint(0, kind, (h // 16 + 1, w // 16 + 1)),
                               np.ones((16, 16)))[:h, :w].astype(np.uint8)
-            paths.append(os.path.join(root, name, f"{i:06d}.png"))
+            paths.append(os.path.join(
+                root, name, names[i] if names else f"{i:06d}.png"))
             Image.fromarray(arr).save(paths[-1])
         listing = os.path.join(root, f"{name}.txt")
         with open(listing, "w") as f:
@@ -2425,6 +2462,401 @@ def phase_s2d():
     return out
 
 
+# RefineNet-LW (rf_lw) at the try size: the four adapter planes (C, H, W)
+# of one G application, 1/4 down to 1/32 of RF_FINE × 3·RF_FINE; G runs
+# twice a train step (real, then synthetic), so each kernel launches
+# RF_PER_STEP times a step
+RF_FINE = 192
+RF_H, RF_W = RF_FINE, 3 * RF_FINE
+RF_PLANES = tuple((64 * 4 * 2 ** i, RF_H // (4 * 2 ** i), RF_W // (4 * 2 ** i))
+                  for i in range(4))
+RF_G_APPLIES = 2
+RF_PER_STEP = RF_G_APPLIES * len(RF_PLANES)
+RF_WIDTHS = {}               # config overrides; empty: the full width
+RF_BATCHES = (1, 8)
+RF_NETS = ("G", "seg8", "seg4", "seg2", "seg2_0")
+RF_CLI_SIZE = (1242, 375)    # the synthetic try tree's images (w, h)
+KITTI_GT_SIZE = (1216, 352)  # depth_selection ground truth (w, h)
+
+
+def rf_shapes(n):
+    """{(n, C, H, W): calls per train step} of the adapters."""
+    return {(n, *plane): RF_G_APPLIES for plane in RF_PLANES}
+
+
+def rf_config(**kw):
+    from cycle_depth_estimation_tpu_torch.config import (Config,
+                                                         apply_model_defaults)
+
+    return apply_model_defaults(Config(**{
+        "model": "rf_lw", "device": "cuda", "fine_size": RF_FINE,
+        **RF_WIDTHS, **kw}))
+
+
+def rf_flags():
+    return [f for k, v in RF_WIDTHS.items() for f in (
+        f"--{k}", *map(str, v if isinstance(v, list) else [v]))]
+
+
+def rf_params(state):
+    return {k: {n: p.detach().clone() for n, p in net.named_parameters()}
+            for k, net in state.nets.items()}
+
+
+def rf_flip_share(p0, a, b):
+    """The share of parameters whose first update has another sign in ``a``
+    than in ``b`` (both from ``p0``), over every net."""
+    flipped = total = 0
+    for name, params in p0.items():
+        for k, v in params.items():
+            flipped += int((a[name][k] - v).sign().ne(
+                (b[name][k] - v).sign()).sum())
+            total += v.numel()
+    return flipped / total
+
+
+def rf_losses(m):
+    """The losses of a metrics dict (the accuracies left out: one argmax
+    tie moves them by a pixel's share)."""
+    return {k: v for k, v in m.items() if not k.startswith("acc")}
+
+
+def rf_lw_step_flops(n, **kw):
+    """The FLOPs of one train step of ``rf_config(batch_size=n, **kw)``'s
+    model by phase, counted by ``torch.utils.flop_counter`` on the meta
+    device (the plain InstanceNorm in place of the kernel; no device
+    needed), and its parameter count."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.ops import layers
+
+    model = create_model(rf_config(batch_size=n, device="cpu", **kw))
+    model.device = torch.device("meta")
+    with torch.device("meta"):
+        state = model.init_state()
+        batch = {k: torch.empty_like(v) for k, v in s2d_batch(
+            n, size=(RF_H, RF_W)).items()}
+    counter, by_phase = FlopCounterMode(display=False), {}
+    with counter, mock.patch.object(layers, "instance_norm",
+                                    plain_instance_norm_fn()):
+        ctx = model._ctx(batch)
+        for name, phase in model.PHASES:
+            before = counter.get_total_flops()
+            phase(model, state, ctx)
+            by_phase[name] = counter.get_total_flops() - before
+    params = sum(p.numel() for net in state.nets.values()
+                 for p in net.parameters())
+    return by_phase, params
+
+
+def phase_rf_lw_kernels(gen):
+    """Phase 18a: both InstanceNorm kernels against their plain versions at
+    the four adapter planes, fp32 and bf16, batch 1 and 8, with kernel,
+    plain, library and bound times (the helpers of phases 1 and 1b).
+    Returns {batch: (forward totals, backward totals)} per fp32 train step
+    and the largest errors."""
+    out, errs = {}, [0.0, 0.0]
+    for n in RF_BATCHES:
+        f, f_err = phase_instance_norm(gen, rf_shapes(n), f"18a bs{n}",
+                                       "rf_lw step", "float32")
+        b, b_err = phase_instance_norm_backward(gen, rf_shapes(n),
+                                                f"18a bs{n}", "rf_lw step")
+        out[n] = (f, b)
+        errs = [max(errs[0], f_err), max(errs[1], b_err)]
+    return out, errs
+
+
+def rf_compare(n, batch):
+    """One rf_lw step at batch ``n`` from one init through the kernels
+    (every InstanceNorm call held against its plain version as it happens),
+    the plain versions and ``F.instance_norm``, cuDNN deterministic.
+    Raises past phase 8's yardstick (losses 1e-4 relative, sign-flipped
+    first updates 1e-4 of the parameters, or twice the library path's
+    distance); returns the kernel step's metrics."""
+    import torch
+    import torch.nn.functional as F
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.ops import layers
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm, instance_norm_backward)
+
+    model = create_model(rf_config(batch_size=n))
+    torch.backends.cudnn.deterministic = True
+    p0 = rf_params(model.init_state())
+    runs, report = {}, {}
+    for path, patch in (("kernel", None), ("plain", plain_instance_norm_fn()),
+                        ("library", lambda x, eps=1e-5: F.instance_norm(
+                            x, eps=eps))):
+        expect = RF_PER_STEP if patch is None else 0
+        st = model.init_state()
+        with (mock.patch.object(layers, "instance_norm", patch) if patch
+              else checked_instance_norm(report)), \
+                counted(instance_norm, expect, f"rf_lw {path} step"), \
+                counted(instance_norm_backward, expect,
+                        f"rf_lw {path} step backward"):
+            st, m = model.train_step(st, batch)
+        g = dict(st.nets["G"].named_parameters())
+        moved = [k for k, v in p0["G"].items()
+                 if k.split(".")[0].endswith("_s") and not torch.equal(v, g[k])]
+        if moved:  # the synthetic branch takes the _r adapters
+            raise AssertionError(f"rf_lw moved the unused _s adapters: "
+                                 f"{moved}")
+        runs[path] = (rf_params(st), {k: float(v) for k, v in m.items()})
+        del st
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    want = {(kind, shape, "float32") for kind in ("in_fwd", "in_bwd")
+            for shape in rf_shapes(n)}
+    if set(report) != want or any(c != RF_G_APPLIES
+                                  for c, _ in report.values()):
+        raise AssertionError(f"rf_lw bs{n} InstanceNorm calls {report}")
+    log_report(f"phase 18b bs{n}", report)
+    m_k, m_p, m_l = (runs[p][1] for p in ("kernel", "plain", "library"))
+    if not all(math.isfinite(v) for _, m in runs.values() for v in m.values()):
+        raise AssertionError(f"rf_lw losses not finite: {runs}")
+    rel_k = rel_loss_diffs(rf_losses(m_k), rf_losses(m_p))
+    rel_l = rel_loss_diffs(rf_losses(m_l), rf_losses(m_p))
+    flip_k = rf_flip_share(p0, runs["kernel"][0], runs["plain"][0])
+    flip_l = rf_flip_share(p0, runs["library"][0], runs["plain"][0])
+    log(f"phase 18b bs{n}: kernel step losses {m_k}; vs plain: relative "
+        "loss diffs " + " ".join(f"{k} {v:.1e}" for k, v in rel_k.items())
+        + f", accuracies {m_k['acc_syn']:.6f}/{m_p['acc_syn']:.6f} "
+        f"{m_k['acc_real']:.6f}/{m_p['acc_real']:.6f}, sign-flipped first "
+        f"updates {flip_k:.2e}; F.instance_norm vs plain: "
+        + " ".join(f"{k} {v:.1e}" for k, v in rel_l.items())
+        + f", sign-flipped {flip_l:.2e}; {RF_PER_STEP} in_fwd and "
+        f"{RF_PER_STEP} in_bwd launches")
+    over = [k for k in rel_k if rel_k[k] > max(1e-4, 2 * rel_l[k])]
+    if over or flip_k > max(1e-4, 2 * flip_l):
+        raise AssertionError(f"rf_lw bs{n}, kernel vs plain: losses {over} "
+                             f"past their limit ({rel_k}, library {rel_l}); "
+                             f"sign-flipped {flip_k} (library {flip_l})")
+    return m_k
+
+
+def phase_rf_lw_variants(batch, m32):
+    """One rf_lw7 step (ResNetLW-50, one head) and one bf16 rf_lw step at
+    batch 1, each InstanceNorm call checked; the bf16 losses within
+    BF16_LOSS_REL of the fp32 step's ``m32`` from the same init."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm, instance_norm_backward)
+
+    out = {}
+    for tag, kw in (("rf_lw7", {"model": "rf_lw7"}),
+                    ("bf16", {"dtype": "bfloat16"})):
+        model = create_model(rf_config(**kw))
+        st = model.init_state()
+        depth0 = (None if tag != "rf_lw7" else
+                  {k: v.clone() for k, v in st.nets["depth"].state_dict().items()})
+        report = {}
+        torch.cuda.reset_peak_memory_stats()
+        with checked_instance_norm(report), \
+                counted(instance_norm, RF_PER_STEP, f"{tag} step"), \
+                counted(instance_norm_backward, RF_PER_STEP,
+                        f"{tag} step backward"):
+            st, m = model.train_step(st, batch)
+        torch.cuda.synchronize()
+        m = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{tag} losses {m}")
+        dt = "bfloat16" if tag == "bf16" else "float32"
+        if {(k, sh, d) for k, sh, d in report} != {
+                (kind, shape, dt) for kind in ("in_fwd", "in_bwd")
+                for shape in rf_shapes(1)}:
+            raise AssertionError(f"{tag} InstanceNorm calls {sorted(report)}")
+        log_report(f"phase 18b {tag}", report)
+        if depth0 is not None and any(
+                not torch.equal(v, depth0[k])
+                for k, v in st.nets["depth"].state_dict().items()):
+            raise AssertionError("rf_lw7 stepped its depth block")
+        out[tag] = (m, torch.cuda.max_memory_allocated())
+        del model, st
+        torch.cuda.empty_cache()
+    rel = rel_loss_diffs(rf_losses(out["bf16"][0]), rf_losses(m32))
+    log(f"phase 18b: rf_lw7 bs1 first-step losses {out['rf_lw7'][0]}; bf16 "
+        f"rf_lw bs1: {out['bf16'][0]}, relative to fp32 "
+        + " ".join(f"{k} {v:.1e}" for k, v in rel.items())
+        + f"; peak {out['bf16'][1] / 2 ** 30:.2f} GiB")
+    if max(rel.values()) > BF16_LOSS_REL:
+        raise AssertionError(f"rf_lw bf16 vs fp32: {rel}")
+
+
+def write_kitti_tree(root, n=2):
+    """A ``try`` tree of ``n`` vKITTI-sized samples whose KITTI names give
+    distinct ``f_name`` slices, and a ground-truth directory of uint16
+    meters×256 PNGs named by them (0 = no measurement). Returns (train
+    args, test args, ground-truth dir, prediction names)."""
+    import numpy as np
+    from PIL import Image
+
+    names = [f"2011_09_26_drive_{i:04d}_sync_image_{i:010d}_image_02.png"
+             for i in range(n)]
+    train = write_try_files(os.path.join(root, "data"), n, RF_CLI_SIZE, 14,
+                            names)
+    test = [a.replace("_file_train", "_file_test") for a in train]
+    gt = os.path.join(root, "gt")
+    os.makedirs(gt)
+    rng = np.random.RandomState(15)
+    w, h = KITTI_GT_SIZE
+    preds = []
+    for name in names:
+        d = (rng.rand(h, w) * 60 * 256).astype(np.uint16)
+        d[rng.rand(h, w) < 0.8] = 0  # sparse, as the LiDAR ground truth
+        preds.append(name[-56:-29] + ".png")
+        Image.fromarray(d).save(os.path.join(gt, preds[-1]))
+    return train, test, gt, preds
+
+
+def start_rf_lw_cli():
+    """Phase 18c's train CLI: ``--model rf_lw`` at full width on a
+    synthetic try tree (2 steps, batch 1, 192×576) with ``--kitti_gt_dir
+    --eval_freq 1``, in a process of its own (``run["cli"]``)."""
+    run = {"dir": tempfile.TemporaryDirectory()}
+    tmp = run["dir"].name
+    train, test, gt, preds = write_kitti_tree(tmp)
+    run.update(test=test, gt=gt, preds=preds, ck=os.path.join(tmp, "ck"))
+    run["cli"] = start_cli(TRAIN_CLI, [
+        "--model", "rf_lw", *train, *test, "--checkpoints_dir", run["ck"],
+        "--name", "rf", "--niter", "1", "--niter_decay", "0",
+        "--save_epoch_freq", "1", "--print_freq", "1", "--display_freq", "2",
+        "--num_threads", "2", "--device", "cuda", "--fine_size", str(RF_FINE),
+        "--kitti_gt_dir", gt, "--eval_freq", "1", *rf_flags()])
+    return run
+
+
+def end_rf_lw_cli(run):
+    """End the train CLI, check its records lines (one a step, each with
+    every KITTI metric) and visuals, then ``save_kitti`` from its
+    ``latest`` checkpoint (rf_lw) and from a random init (S2D, small
+    widths) side by side, and ``eval_kitti`` on the rf_lw maps; each CLI a
+    process of its own."""
+    import numpy as np
+    from PIL import Image
+
+    from cycle_depth_estimation_tpu_torch.utils.metrics import (
+        DEPTH_METRIC_NAMES)
+
+    text, secs = end_cli(run.pop("cli"), "rf_lw train CLI")
+    expr = os.path.join(run["ck"], "rf")
+    with open(os.path.join(expr, "records.txt")) as f:
+        records = [json.loads(line) for line in f]
+    if [r["iters"] for r in records] != [1, 2] or any(
+            not all(math.isfinite(r[k]) for k in DEPTH_METRIC_NAMES)
+            for r in records) or "[kitti eval] skipped" in text:
+        raise AssertionError(f"rf_lw train CLI records {records}:\n"
+                             f"{text[-3000:]}")
+    for f in ("latest_net_G.pth", "latest_net_seg2_0.pth",
+              os.path.join("web", "images", "epoch001_real_dep_pre.png")):
+        if not os.path.exists(os.path.join(expr, f)):
+            raise AssertionError(f"rf_lw train CLI did not write {f}")
+    tool = "cycle_depth_estimation_tpu_torch.tools."
+    out_rf, out_s2d = (os.path.join(run["dir"].name, d)
+                       for d in ("pred_rf", "pred_s2d"))
+    common = [*run["test"], "--checkpoints_dir", run["ck"], "--device",
+              "cuda", "--fine_size", str(RF_FINE)]
+    runs = {"rf_lw": start_cli(tool + "save_kitti", [
+                "--model", "rf_lw", "--name", "rf", "--epoch", "latest",
+                "--out_dir", out_rf, *common, *rf_flags()]),
+            "S2D": start_cli(tool + "save_kitti", [
+                "--model", "S2D", "--name", "s2d", "--out_dir", out_s2d,
+                *common, "--dense_block_config", "2", "2", "2", "2",
+                "--dense_growth_rate", "8", "--s2d_mid_nc", "64",
+                "--g1_blocks", "1"])}
+    secs_save = {k: end_cli(r, f"save_kitti --model {k}")[1]
+                 for k, r in runs.items()}
+    for model, out in (("rf_lw", out_rf), ("S2D", out_s2d)):
+        got = sorted(os.listdir(out))
+        if got != sorted(run["preds"]):
+            raise AssertionError(f"save_kitti {model} wrote {got}, want "
+                                 f"{sorted(run['preds'])}")
+        for f in got:
+            a = np.asarray(Image.open(os.path.join(out, f)))
+            if a.shape != (RF_H, RF_W) or a.dtype != np.uint8:
+                raise AssertionError(f"save_kitti {model} {f}: {a.shape} "
+                                     f"{a.dtype}")
+    # the in-loop validation after the last step ran the nets `latest` holds
+    lsb = max(int(np.abs(np.asarray(Image.open(os.path.join(out_rf, f)),
+                                    np.int64)
+                         - np.asarray(Image.open(os.path.join(expr, "pred",
+                                                              f)))).max())
+              for f in run["preds"])
+    if lsb > 1:
+        raise AssertionError(f"save_kitti rf_lw vs the in-loop maps: {lsb}")
+    records_file = os.path.join(run["dir"].name, "records.txt")
+    text_eval, secs_eval = end_cli(start_cli(tool + "eval_kitti", [
+        "--gt_dir", run["gt"], "--pred_dir", out_rf, "--records",
+        records_file]), "eval_kitti")
+    lines = text_eval.strip().splitlines()
+    header = [h.strip() for h in lines[-2].split(",")]
+    values = [float(v) for v in lines[-1].split(",")]
+    with open(records_file) as f:
+        rec = [json.loads(line) for line in f]
+    if header != list(DEPTH_METRIC_NAMES) or len(rec) != 1 or any(
+            abs(rec[0][k] - v) > 1e-4 for k, v in zip(header, values)):
+        raise AssertionError(f"eval_kitti printed {lines[-2:]}, records "
+                             f"{rec}")
+    log(f"phase 18c ok: train CLI --model rf_lw (2 steps, in-loop KITTI "
+        f"validation each step) {secs:.1f} s, records {records[-1]}; "
+        f"save_kitti rf_lw {secs_save['rf_lw']:.1f} s (maps within {lsb} of "
+        f"the in-loop ones), S2D {secs_save['S2D']:.1f} s; eval_kitti "
+        f"{secs_eval:.1f} s: {dict(zip(header, values))}")
+    run["dir"].cleanup()
+
+
+def phase_rf_lw(cli):
+    """Phase 18b: rf_lw at full width (ResNetLW-101, four heads, 28 + 1
+    classes), 192×576, fp32 with TF32 off: at batch 1 and 8 one step
+    through the kernels against the plain versions and F.instance_norm
+    (``rf_compare``), 8 + 8 launches a step; rf_lw7 and bf16 steps; then
+    the step timed at batch 1 and 8 (ms, img/s, peak memory) and profiled
+    (idle share, top kernels, the InstanceNorm kernels beside their
+    bounds). ``cli`` (phase 18c's train CLI) runs beside the untimed
+    checks and is ended, with the KITTI tools after it, before the
+    timing."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    cfg = rf_config()
+    if (cfg.dataset_mode, cfg.batch_size, cfg.fine_size) != ("try", 1, 192) \
+            and not RF_WIDTHS:
+        raise AssertionError(f"rf_lw defaults: {cfg}")
+    batches = {n: on(s2d_batch(n, seed=16 + n, size=(RF_H, RF_W)), "cuda")
+               for n in RF_BATCHES}
+    try:
+        m32 = {n: rf_compare(n, batches[n]) for n in RF_BATCHES}
+        phase_rf_lw_variants(batches[1], m32[1])
+    finally:
+        if "cli" in cli:
+            end_rf_lw_cli(cli)
+    out = {}
+    for n in RF_BATCHES:
+        model = create_model(rf_config(batch_size=n))
+        state = model.init_state()
+        state, dt, peak = timed_steps(model, state, batches[n])
+        flops, params = rf_lw_step_flops(n)
+        total = sum(flops.values())
+        log(f"phase 18b: rf_lw train step bs{n} {RF_H}x{RF_W} fp32 (TF32 "
+            f"off): {dt * 1e3:.1f} ms/step = {n / dt:.2f} img/s; peak memory "
+            f"{peak / 2 ** 30:.2f} GiB; {total / 1e12:.3f} TFLOP a step ("
+            + ", ".join(f"{k} {v / 1e9:.1f} GFLOP" for k, v in flops.items())
+            + f"; {params / 1e6:.1f} M parameters) = "
+            f"{total / dt / 1e12:.1f} TFLOP/s")
+        profile_step(f"phase 18b bs{n}", model, state, batches[n],
+                     rf_shapes(n))
+        out[f"bs{n}"] = {"ms": dt * 1e3, "img_s": n / dt, "peak": peak}
+        del model, state
+        torch.cuda.empty_cache()
+    log("phase 18 ok")
+    return out
+
+
 LOADERS = {  # name: the train CLI's loader flags
     "serial": ["--num_threads", "0"],
     "4 threads (the default)": ["--num_threads", "4"],
@@ -2527,6 +2959,7 @@ def main() -> int:
         return 0
     in_tot, in_err = phase_instance_norm(gen)
     bwd_tot, bwd_err = phase_instance_norm_backward(gen)
+    rf_kernels, rf_errs = phase_rf_lw_kernels(gen)
     ep_tot, ep_err = phase_epilogue(gen)
     phase_int8_conv(gen)
 
@@ -2599,9 +3032,15 @@ def main() -> int:
         if "resume" in seg_cli:
             end_cli(seg_cli.pop("resume"), "SegCycle train CLI resume")
     s2d = phase_s2d()
+    rf_cli = start_rf_lw_cli()  # beside phase 18b's checks
+    try:
+        rf, rf_lw = counts_of(lambda: phase_rf_lw(rf_cli))
+    finally:
+        if "cli" in rf_cli:
+            end_cli(rf_cli.pop("cli"), "rf_lw train CLI")
     later = {"bf16_and_fp32_training": bf16_train,
              "remat_and_plain": remat,
-             "seg_cycle": seg_cycle, "t2net": t2net}
+             "seg_cycle": seg_cycle, "t2net": t2net, "rf_lw": rf_lw}
     for path, counts in (("serving", serving), ("training", training),
                          ("pix2pix", pix2pix), *later.items()):
         for name, n in counts.items():
@@ -2613,6 +3052,16 @@ def main() -> int:
     bwd_bound, bwd_by = bound(bwd_tot["bytes"], bwd_tot["flops"])
     ep_bound, ep_by = bound(ep_tot["bytes"], ep_tot["flops"])
     in_source = "cycle_depth_estimation_tpu_torch/ops/kernels/instance_norm.py"
+
+    def rf_step_times(i):  # the kernel's sums over a fp32 rf_lw step
+        out = {}
+        for n, totals in rf_kernels.items():
+            t = totals[i]
+            out[f"bs{n}"] = {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                             "library_ms": t["library_ms"],
+                             "bound_ms": bound(t["bytes"], t["flops"])[0]}
+        return out
+
     kernels = [
         {"name": "instance_norm", "route": "triton", "source": in_source,
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/instance_norm.py:55",
@@ -2624,10 +3073,11 @@ def main() -> int:
                               "pix2pix": pix2pix["instance_norm"],
                               **{p: c["instance_norm"]
                                  for p, c in later.items()}},
-         "max_abs_err": in_err,
+         "max_abs_err": max(in_err, rf_errs[0]),
          "ms": in_tot["ms"], "plain_ms": in_tot["plain_ms"],
          "bound_ms": in_bound, "bound_by": in_by,
-         "library_ms": in_tot["library_ms"]},
+         "library_ms": in_tot["library_ms"],
+         "rf_lw_step": rf_step_times(0)},
         {"name": "instance_norm_bwd", "route": "triton", "source": in_source,
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/instance_norm.py:105",
          "launches": (training["instance_norm_bwd"]
@@ -2637,10 +3087,11 @@ def main() -> int:
                               "pix2pix": pix2pix["instance_norm_bwd"],
                               **{p: c["instance_norm_bwd"]
                                  for p, c in later.items()}},
-         "max_abs_err": bwd_err,
+         "max_abs_err": max(bwd_err, rf_errs[1]),
          "ms": bwd_tot["ms"], "plain_ms": bwd_tot["plain_ms"],
          "bound_ms": bwd_bound, "bound_by": bwd_by,
-         "library_ms": bwd_tot["library_ms"]},
+         "library_ms": bwd_tot["library_ms"],
+         "rf_lw_step": rf_step_times(1)},
         {"name": "int8_epilogue", "route": "cuda",
          "source": "cycle_depth_estimation_tpu_torch/csrc/int8_epilogue.cu",
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/int8_epilogue.py:137",
@@ -2661,7 +3112,9 @@ def main() -> int:
         f"and T2Net fp32 {ips_t2net:.1f} img/s (bs{BATCH}, {SEG_H}x{SEG_W}); "
         "S2D fp32 " + ", ".join(f"bs{n} {s2d[f'bs{n}']['img_s']:.2f}"
                                 for n in S2D_BATCHES)
-        + f" img/s ({S2D_H}x{S2D_W}); "
+        + f" img/s ({S2D_H}x{S2D_W}); rf_lw fp32 "
+        + ", ".join(f"bs{n} {rf[f'bs{n}']['img_s']:.2f}" for n in RF_BATCHES)
+        + f" img/s ({RF_H}x{RF_W}); "
         "kernel "
         "ms are sums over the calls of one forward (23: instance_norm in "
         "bf16, int8_epilogue in bf16 up mode) or of one fp32 CycleGAN train "

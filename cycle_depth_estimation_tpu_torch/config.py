@@ -1,5 +1,6 @@
 """Config of the port: the subset of the JAX package's ``Config`` that the
-test CLI, the CycleGAN, pix2pix, SegCycle, T2Net (``seg``) and S2D models,
+test CLI, the CycleGAN, pix2pix, SegCycle, T2Net (``seg``), S2D and
+RefineNet-LW (``rf_lw``, ``rf_lw7``) models,
 the data layer and the train CLI read, with the same field
 names, defaults, reference flag aliases (``--loadSize``, ``--netD``,
 ``--lambda_A`` …) and two-phase parse (base flags, then per-model defaults
@@ -107,6 +108,18 @@ class Config:
     dense_block_config: Optional[List[int]] = None  # None: (6, 12, 32, 32)
     dense_growth_rate: Optional[int] = None         # None: 32
     s2d_mid_nc: Optional[int] = None                # None: 1024
+    # RefineNet-LW: the ResNet trunk's blocks per layer; None is rf_lw's
+    # (3, 4, 23, 3) and rf_lw7's (3, 4, 6, 3)
+    resnet_layers: Optional[List[int]] = None
+    # the adapter set rf_lw's synthetic branch takes: None keeps the
+    # reference drivers' 'real'; 'syn' the per-domain split
+    syn_domain: Optional[str] = None
+    # in-loop KITTI validation (reference new_multi/train5.py:85-115): every
+    # eval_freq images, with kitti_gt_dir set, the test split's refined
+    # depths are written and scored and a line appended to records_file
+    eval_freq: int = 1000
+    kitti_gt_dir: str = ""
+    records_file: str = "records.txt"
     # test options
     results_dir: str = "./results/"
     aspect_ratio: float = 1.0
@@ -138,6 +151,8 @@ MODEL_DEFAULTS = {
     "seg": dict(no_dropout=True, dataset_mode="synthia"),
     "seg_cycle": dict(no_dropout=True, dataset_mode="synthia"),
     "S2D": dict(dataset_mode="try", batch_size=1, fine_size=192),
+    "rf_lw": dict(dataset_mode="try", batch_size=1, fine_size=192),
+    "rf_lw7": dict(dataset_mode="try", batch_size=1, fine_size=192),
 }
 
 

@@ -9,12 +9,18 @@ same order, so forced crops and flips give the host's numbers exactly. Crop
 offsets and flips are drawn from an explicit ``torch.Generator`` on the
 batch's device: one seed gives one sequence, though not the JAX package's
 (``jax.random``) draws.
+
+The label and depth part — ``remap_labels``, ``label_edges`` and
+``depth_bands`` — is ``data/preprocess.py``'s arithmetic on (N)HW tensors of
+the batch's device, batched, with the channel first where the host
+functions put it last.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterator, Sequence, Tuple
 
+import numpy as np
 import torch
 
 _LUMA = (0.299, 0.587, 0.114)
@@ -135,3 +141,67 @@ def wrap_for_config(iterator, cfg, generator: torch.Generator):
         groups=ALIGNED_GROUPS if aligned else UNALIGNED_GROUPS,
         aligned_flags=(True,) if aligned else (False, False),
         grayscale_keys=gkeys)
+
+
+def remap_labels(labels: torch.Tensor, lut) -> torch.Tensor:
+    """The label remap as one gather through a composed LUT
+    (``preprocess.compose_lut``; host: ``remap_sequential``), int64."""
+    lut = torch.as_tensor(np.asarray(lut), dtype=torch.int64,
+                          device=labels.device)
+    return lut[labels.long()]
+
+
+def label_edges(labels: torch.Tensor, suppress_class: int = 21
+                ) -> torch.Tensor:
+    """4-neighbour label-difference edges of an (N)HW integer label map,
+    float32 {0, 1} (host: ``preprocess.label_edges``). A pixel of
+    ``suppress_class`` draws no edge; the zero padding makes a nonzero
+    border label an edge."""
+    lab = labels.long()
+    sky = lab == suppress_class
+    h, w = lab.shape[-2:]
+    pad = torch.nn.functional.pad(lab, (1, 1, 1, 1))
+    edge = torch.zeros(lab.shape, dtype=torch.bool, device=lab.device)
+    for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+        # s[y, x] = lab[y − dy, x − dx], 0 outside
+        s = pad[..., 1 - dy:1 - dy + h, 1 - dx:1 - dx + w]
+        edge |= lab != torch.where(sky, torch.full_like(s, suppress_class), s)
+    return edge.float()
+
+
+def _renorm(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+            ) -> torch.Tensor:
+    return 2.0 * (x - lo) / torch.clamp(hi - lo, min=1e-6) - 1.0
+
+
+def depth_bands(depth: torch.Tensor, train: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(full, bands)`` of (N)HW 16-bit depth values, per image (host:
+    ``preprocess.depth_bands``): ``full`` (N)1HW, ``bands`` (N)4HW, float32;
+    train mode renormalizes each band by its own (min, max), band 5 offset
+    by the normalized band 4's minimum; eval mode by the max alone."""
+    d = depth.float()
+    dims = (-2, -1)
+
+    def lo(t):
+        return t.amin(dim=dims, keepdim=True)
+
+    def hi(t):
+        return t.amax(dim=dims, keepdim=True)
+
+    d0 = torch.clamp(d, max=8000.0)
+    d2 = torch.where(d < 5000.0, torch.full_like(d, 5000.0), d0)
+    d2 = _renorm(d2, lo(d2), hi(d2))
+    d3 = torch.clamp(d, 3000.0, 6000.0)
+    d3 = _renorm(d3, lo(d3), hi(d3))
+    d4 = torch.clamp(d, 1000.0, 4000.0)
+    d4n = _renorm(d4, lo(d4), hi(d4))
+    d5 = torch.clamp(d, max=2000.0)
+    if train:
+        d5n = (2.0 * (d5 - lo(d4n)) / torch.clamp(hi(d5) - lo(d5), min=1e-6)
+               - 1.0)
+        full = _renorm(d0, lo(d0), hi(d0))
+    else:
+        d5n = 2.0 * d5 / torch.clamp(hi(d5), min=1e-6) - 1.0
+        full = 2.0 * d0 / torch.clamp(hi(d0), min=1e-6) - 1.0
+    return full.unsqueeze(-3), torch.stack([d2, d3, d4n, d5n], dim=-3)

@@ -20,7 +20,8 @@ the two image paths. Each ``*_file_{train,test}`` option names a folder or
 a ``.txt`` list of paths.
 
 ``try`` works at 576×192 at the default ``fine_size`` 192 (3:1); its
-samples are described in ``TryDataset``.
+samples are described in ``TryDataset``. ``kitti`` (vKITTI images and depth
+against KITTI images) is described in ``KittiDataset``.
 """
 
 from __future__ import annotations
@@ -116,6 +117,58 @@ class SynthiaDataset(_Base):
             "img_source_paths": self.img_source_paths[item % n_src],
             "img_target_paths": self.img_target_paths[index],
         }
+
+
+@register_dataset("kitti")
+class KittiDataset(_Base):
+    """vKITTI (image, 16-bit depth) → KITTI (image), unpaired (reference
+    datasets/dataset_kitti.py). At 640×192 (w×h) at the default
+    ``fine_size`` 256, else ``fine_size`` high at 640:192. Images are
+    resized bicubic, the depth bilinear; no augmentation. Samples:
+    ``img_source``/``img_target`` 3HW in [-1, 1] and the two paths; in the
+    train phase of a train config also ``lab_source`` (the depth through
+    ``clip_depth_8000``, 1HW in [0, 1]) and its path. The target index comes
+    from the numpy ``Generator`` of (seed, epoch, index)."""
+
+    ASPECT = 640 / 192
+
+    @property
+    def size(self):
+        """(w, h)."""
+        h = self.cfg.fine_size if self.cfg.fine_size != 256 else 192
+        return int(round(h * self.ASPECT)), h
+
+    def __init__(self, cfg, phase: str):
+        super().__init__(cfg)
+        self.phase = phase
+        suffix = "train" if phase == "train" else "test"
+        for attr, opt in (("img_source", "img_source"),
+                          ("img_target", "img_target"),
+                          ("lab_source", "depth_source")):
+            setattr(self, f"{attr}_paths",
+                    _paths(getattr(cfg, f"{opt}_file_{suffix}")))
+
+    def __len__(self):
+        return max(len(self.img_source_paths), len(self.img_target_paths))
+
+    def __getitem__(self, item: int) -> Dict[str, object]:
+        rng = self._rng(item)
+        size = self.size
+        index = int(rng.integers(0, len(self.img_target_paths)))
+        src_path = self.img_source_paths[item % len(self.img_source_paths)]
+        tgt_path = self.img_target_paths[index]
+        img_source, img_target = (
+            _chw(normalize(to_array(Image.open(p).convert("RGB").resize(
+                size, Image.BICUBIC))).astype(np.float32))
+            for p in (src_path, tgt_path))
+        out = {"img_source": img_source, "img_target": img_target,
+               "img_source_paths": src_path, "img_target_paths": tgt_path}
+        if self.cfg.is_train and self.phase == "train":
+            dep_path = self.lab_source_paths[item % len(self.lab_source_paths)]
+            depth = Image.open(dep_path).resize(size, Image.BILINEAR)
+            out["lab_source"] = _chw(clip_depth_8000(np.array(depth)))
+            out["lab_source_paths"] = dep_path
+        return out
 
 
 @register_dataset("try")

@@ -18,7 +18,9 @@ the reference's state-dict names:
 - ``SDiscriminator`` (FD1–FD3): a BatchNorm PatchGAN in one flat ``model``
   whose first and last activations are one PReLU module, appended twice,
   so its α has two keys and is one parameter;
-- ``get_masks`` and ``bce_dep_loss``.
+- ``DeconvBlock`` (LeakyReLU(0.02), then a 4×4 stride-2 transposed conv,
+  optionally BatchNorm), the block of RefineNet-LW's ``segd`` heads;
+- ``get_masks``, ``bce_dep_loss`` and ``bce_dep_loss_truncated``.
 
 All BatchNorms are ``ops/layers.BatchNorm`` (flax's running-variance
 update). Each net's ``jax_sites`` names its parts as the JAX module's
@@ -430,6 +432,27 @@ class SDiscriminator(_ReferenceNet):
                 "conv_out": m[base + 3]}
 
 
+class DeconvBlock(nn.Module, Sites):
+    """DeconvBlock (networks5_ds.py:68-87): LeakyReLU(``negative_slope``),
+    then ConvTranspose2d(k4, s2, p1) with a bias, then BatchNorm with
+    ``batch_norm``. Keys ``deconv`` and ``bn``."""
+
+    def __init__(self, input_nc: int, output_nc: int, batch_norm: bool = False,
+                 negative_slope: float = LEAK):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self.deconv = ConvTranspose2d(input_nc, output_nc, 4, 2, 1)
+        self.bn = BatchNorm(output_nc) if batch_norm else None
+
+    def forward(self, x):
+        h = self.deconv(F.leaky_relu(x, self.negative_slope))
+        return h if self.bn is None else self.bn(h)
+
+    def jax_sites(self):
+        return ({"deconv": self.deconv} if self.bn is None
+                else {"deconv": self.deconv, "bn": self.bn})
+
+
 def s2d_nets(cfg) -> Dict[str, nn.Module]:
     """The six S2D nets at ``cfg``'s widths (``g1_blocks``,
     ``dense_block_config``, ``dense_growth_rate``, ``s2d_mid_nc``; None is
@@ -482,3 +505,15 @@ def bce_dep_loss(pred: torch.Tensor, target: torch.Tensor,
     return (F.binary_cross_entropy(p * o_m, t * o_m)
             + F.binary_cross_entropy(p * z_m, t * z_m)
             + 50.0 * (pred - target).abs().mean())
+
+
+def bce_dep_loss_truncated(pred: torch.Tensor, target: torch.Tensor,
+                           o_m: torch.Tensor, z_m: torch.Tensor
+                           ) -> torch.Tensor:
+    """The BCEDepLoss that RefineNet-LW trains with (the semantic_trans copy,
+    networks5_ds.py:849-852): the BCE of the ``o_m`` sites alone, on
+    ``F.binary_cross_entropy`` as in ``bce_dep_loss``. ``z_m`` is taken and
+    not read, as in the JAX function."""
+    del z_m
+    pred, target = pred.float(), target.float()
+    return F.binary_cross_entropy((pred + 1) / 2 * o_m, (target + 1) / 2 * o_m)

@@ -18,7 +18,9 @@ conv, adds the fp32 bias and rounds again: one bf16 rounding apart.
 ``BatchNorm`` returns its input's dtype (the JAX ``Norm(dtype=…)``) with
 fp32 statistics; ``PReLU`` casts its α to the input's dtype.
 
-``avg_pool`` and ``resize_bilinear`` are the JAX functions of those names.
+``avg_pool``, ``max_pool``, ``resize_bilinear``, ``resize_nearest``,
+``pixel_shuffle`` and ``replicate_pad`` are the JAX functions of those
+names, on NCHW.
 The JAX ``resize_bilinear_mm`` (chosen by ``prefer_mm`` or the
 ``CDE_RESIZE_MM`` variable) computes the same two-tap interpolation as
 dense matmuls, a layout for the TPU's matrix unit; ``F.interpolate`` is
@@ -96,6 +98,34 @@ def avg_pool(x: torch.Tensor, window: int,
     """``nn.AvgPool2d`` without padding (the JAX ``avg_pool`` as its
     callers use it)."""
     return F.avg_pool2d(x, window, stride or window)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
+             padding: int = 0) -> torch.Tensor:
+    """``nn.MaxPool2d``: padded positions never win (−inf padding)."""
+    return F.max_pool2d(x, window, stride or window, padding)
+
+
+def replicate_pad(x: torch.Tensor, pad) -> torch.Tensor:
+    """NCHW edge padding (= ``nn.ReplicationPad2d``); ``pad`` is an int,
+    (ph, pw) or ((top, bottom), (left, right)), as the JAX function takes."""
+    if isinstance(pad, int):
+        pad = (pad, pad)
+    a, b = pad
+    (pt, pb), (pl, pr) = ((a, b) if isinstance(a, (tuple, list))
+                          else ((a, a), (b, b)))
+    return F.pad(x, (pl, pr, pt, pb), mode="replicate")
+
+
+def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """``nn.PixelShuffle``: (N, C·r², H, W) → (N, C, H·r, W·r)."""
+    return F.pixel_shuffle(x, factor)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of NCHW ``x`` to ``size`` (H, W), source index
+    floor(i·in/out): ``F.interpolate(mode='nearest')``."""
+    return F.interpolate(x, size=tuple(size), mode="nearest")
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],

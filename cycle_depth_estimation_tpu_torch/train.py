@@ -19,11 +19,20 @@ reference train.py:10-81)::
         --lab_source_file_train … --lab_target_file_train … \
         --depth_source_file_train … [--dense_block_config 6 12 32 32 \
         --dense_growth_rate 32 --s2d_mid_nc 1024 --g1_blocks 3]
+    python -m cycle_depth_estimation_tpu_torch.train --model rf_lw …
+        (or rf_lw7; the same files) [--resnet_layers 3 4 23 3] \
+        [--syn_domain syn] [--kitti_gt_dir <dir> --eval_freq N \
+        --*_file_test …]
 
 ``seg_cycle`` and ``seg`` read the ``synthia`` dataset (their default):
 SYNTHIA images, labels and depth against Cityscapes images and labels,
-192×640 at the default ``fine_size``. ``S2D`` reads ``try``: vKITTI images,
-labels and 16-bit depth against KITTI images and labels, 192×576, batch 1.
+192×640 at the default ``fine_size``. ``S2D``, ``rf_lw`` and ``rf_lw7`` read
+``try``: vKITTI images, labels and 16-bit depth against KITTI images and
+labels, 192×576, batch 1. With ``--kitti_gt_dir``, every ``eval_freq``
+images the test split's refined depths go to ``<run>/pred/`` (the
+``save_kitti`` tool), are scored against that directory's ground truth and
+``{"epoch", "iters", <metric>…}`` is appended to ``<run>/<records_file>``;
+a failure there is printed ("[kitti eval] skipped") and training goes on.
 ``--dtype bfloat16`` trains every model in bf16 with fp32 parameters;
 ``--remat`` recomputes the generator forwards in backward (``cycle_gan``)
 or the G_2 and R_D applications (``S2D``).
@@ -129,6 +138,10 @@ def _train(cfg, model, state, loader_train, loader_test, visualizer,
                 print(f"saving the latest model (epoch {epoch}, "
                       f"total_steps {total_steps})")
                 model.save_networks(state, "latest")
+
+            if (cfg.kitti_gt_dir and loader_test is not None
+                    and total_steps % cfg.eval_freq < cfg.batch_size):
+                kitti_validate(cfg, model, state, epoch, total_steps)
             iter_start = time.time()
 
         if loader_test is not None:
@@ -158,6 +171,33 @@ def _train(cfg, model, state, loader_train, loader_test, visualizer,
         visualizer.save_html(epoch)
         state = model.update_learning_rate(state, epoch, metric=eval_metric)
     return state
+
+
+def kitti_validate(cfg, model, state, epoch: int, total_steps: int):
+    """Write the test split's refined depths, score them against
+    ``cfg.kitti_gt_dir`` and append the records line (reference
+    new_multi/train5.py:85-115). Returns the metrics, or None when that
+    failed (the reason is printed; training goes on, as in the JAX CLI)."""
+    import json
+    import traceback
+
+    from .tools.save_kitti import save_depth_maps
+    from .utils.metrics import eval_depth_dirs
+
+    pred_dir = os.path.join(cfg.expr_dir(), "pred")
+    try:
+        save_depth_maps(cfg, pred_dir, max_items=cfg.num_test, model=model,
+                        state=state)
+        metrics = eval_depth_dirs(cfg.kitti_gt_dir, pred_dir)
+    except Exception as exc:  # a broken val split must not end training
+        print(f"[kitti eval] skipped: {exc}")
+        traceback.print_exc()
+        return None
+    line = json.dumps({"epoch": epoch, "iters": total_steps, **metrics})
+    print("[kitti eval]", line)
+    with open(os.path.join(cfg.expr_dir(), cfg.records_file), "a") as fh:
+        fh.write(line + "\n")
+    return metrics
 
 
 if __name__ == "__main__":

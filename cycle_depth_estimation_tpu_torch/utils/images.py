@@ -1,6 +1,6 @@
 """Tensor → image conversion and label colorization (the JAX package's
 ``utils/images.py``, reference util/util.py), for NCHW/CHW tensors and
-(N)HW label maps. ``label2im`` uses the JAX package's palette (a
+(N)HW label maps, and ``depth2im`` for depth maps. ``label2im`` uses the JAX package's palette (a
 Pascal-VOC-style bit shuffle of the class id), packaged here instead of the
 reference's colour tables read from absolute paths."""
 
@@ -51,6 +51,33 @@ def label2im(labels, ignore_index: int = 255) -> np.ndarray:
     arr = np.clip(arr.astype(np.int64), 0, 255)
     out = _PALETTE[arr]
     out[arr == ignore_index] = 0
+    return out
+
+
+def depth2im(depth) -> np.ndarray:
+    """The first map of a depth tensor or array, (N)(1)HW, min-max stretched
+    to gray HWC uint8 (a span under 1e-6 counts as 1e-6)."""
+    arr = (depth.detach().float().cpu().numpy()
+           if isinstance(depth, torch.Tensor)
+           else np.asarray(depth, np.float32))
+    while arr.ndim > 2:
+        arr = arr[0]
+    arr = arr.astype(np.float32)
+    lo, hi = float(arr.min()), float(arr.max())
+    if hi - lo < 1e-6:
+        hi = lo + 1e-6
+    arr = (arr - lo) / (hi - lo) * 255.0
+    return np.tile(arr[..., None], (1, 1, 3)).astype(np.uint8)
+
+
+def scale_pyramid(img: torch.Tensor, num_scales: int):
+    """``img`` (NCHW) and its 2×2 average pools, ``num_scales`` in all, each
+    half the size of the one before (reference util/util.py)."""
+    from ..ops.layers import avg_pool
+
+    out = [img]
+    for _ in range(num_scales - 1):
+        out.append(avg_pool(out[-1], 2, 2))
     return out
 
 

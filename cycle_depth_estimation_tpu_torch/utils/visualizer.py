@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .html import HTML
-from .images import label2im, save_image, tensor2im
+from .images import depth2im, label2im, save_image, tensor2im
 
 
 def save_images(webpage: HTML, visuals: Dict[str, torch.Tensor],
@@ -61,11 +61,16 @@ class Visualizer:
     def display_current_results(self, visuals: Dict[str, torch.Tensor],
                                 epoch: int):
         """Save the first image of each visual (NCHW in [-1, 1]; a label map
-        where the name holds ``lab`` or ``seg``, colorized) as
+        where the name holds ``lab`` or ``seg``, colorized; a depth map where
+        it holds ``dep``, stretched to gray) as
         ``images/epoch{NNN}_{label}.png``."""
         for label, image in visuals.items():
-            im = (label2im(image) if "lab" in label or "seg" in label
-                  else tensor2im(image))
+            if "lab" in label or "seg" in label:
+                im = label2im(image)
+            elif "dep" in label:
+                im = depth2im(image)
+            else:
+                im = tensor2im(image)
             save_image(im, os.path.join(self.img_dir,
                                         f"epoch{epoch:03d}_{label}.png"))
 

@@ -23,7 +23,10 @@ takes instance norm only; the port's converter takes BatchNorm too):
   ``site_prelus`` (S2D's ``SDiscriminator``) names each α.
 
 ``s2d_state_dicts_from_jax`` is the inverse of ``import_g1``,
-``import_general_net``, ``import_rdep`` and ``import_sdiscriminator``.
+``import_general_net``, ``import_rdep`` and ``import_sdiscriminator``;
+``rf_lw_state_dicts_from_jax`` of ``import_resnetlw`` and ``import_segd``
+(rf_lw7's ``depth`` block has no importer: it is held against the JAX
+module's outputs).
 
 The seg nets (T2Net's ``UNetGenerator``, SegCycle's ``UNetEncoder`` and
 ``UNetDecoder``) have no JAX importer and no reference ``.pth`` here: their
@@ -45,6 +48,7 @@ from ..models.encoder_decoder import UNetDecoder, UNetEncoder
 from ..models.networks import (_RESNET_BLOCKS, _UNET_DOWNS,
                                NLayerDiscriminator, PixelDiscriminator,
                                ResnetGenerator, UnetGenerator)
+from ..models.refinenet import rf_lw_nets
 from ..models.s2d_networks import s2d_nets
 from ..models.seg_network import UNetGenerator
 from ..ops.layers import PReLU
@@ -315,6 +319,19 @@ def s2d_state_dicts_from_jax(variables: Mapping[str, Any], cfg
     widths."""
     with torch.device("meta"):
         shells = s2d_nets(cfg)
+    return {k: _state_dict_from_jax(shells[k], *_variables(v))
+            for k, v in variables.items()}
+
+
+def rf_lw_state_dicts_from_jax(variables: Mapping[str, Any], cfg
+                               ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """The JAX RefineNet-LW nets' variables, ``{net: {"params",
+    "batch_stats"}}`` for any of ``cfg.model``'s ``model_names`` (rf_lw: G,
+    seg8, seg4, seg2, seg2_0; rf_lw7: G, seg2_0, depth; numpy leaves) → the
+    port's state dicts of those nets, at ``cfg.resnet_layers``. Both adapter
+    sets of G must be in its params (the JAX ``init`` makes both)."""
+    with torch.device("meta"):
+        shells = rf_lw_nets(cfg)
     return {k: _state_dict_from_jax(shells[k], *_variables(v))
             for k, v in variables.items()}
 

@@ -164,7 +164,10 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         pq.int8_generator_variables(g)
 
 
-_FORBIDDEN = ("jax", "flax", "cycle_depth_estimation_tpu")
+# the JAX stack, the JAX package, and the JAX repository's ``tools/`` (the
+# port keeps its own copies of the tools it needs)
+_FORBIDDEN = ("jax", "flax", "optax", "orbax", "cycle_depth_estimation_tpu",
+              "tools")
 
 
 def _imported_modules(path):
@@ -179,6 +182,11 @@ def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "cycle_depth_estimation_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    port = REPO / "cycle_depth_estimation_tpu_torch"
+    for new in ("models/refinenet.py", "models/rf_lw.py", "tools/__init__.py",
+                "tools/save_kitti.py", "tools/eval_kitti.py",
+                "utils/metrics.py"):
+        assert port / new in files, new
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
