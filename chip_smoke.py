@@ -115,7 +115,8 @@ Launch counts are zeroed just before phase 3 and read after phase 7 (the
 serving path), before phase 8 and after phase 9 (the training path),
 before phase 10 and after phase 12 (the pix2pix path), and before and
 after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net),
-17 (S2D, where they must stay 0) and 18b (rf_lw).
+17 and 19 (S2D and the base generation, where they must stay 0) and 18b
+(rf_lw).
 18. RefineNet-LW (``--model rf_lw``) at the JAX package's full width
    (ResNetLW-101, four segd heads, 28 + 1 classes), 192×576. 18a (run
    right after phase 1b, with the other kernel checks): both InstanceNorm
@@ -132,6 +133,22 @@ after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net),
    KITTI metric), then ``save_kitti`` from its ``latest`` checkpoint and
    for a small random S2D, and ``eval_kitti`` on the rf_lw maps, each in a
    process of its own.
+19. The base my_seg_depth generation, ``--model S2D_base`` and ``--model
+   S2D_alt``, at the JAX package's full width (S2D_base: G_1 with 3 resnet
+   blocks, the DenseNet-169 GeneralNet2, SEG2/DEP2, the dropout
+   discriminator at ndf 64; S2D_alt: two 3-block GBase encoders,
+   FeatureNet, SEGAlt/DEPAlt, the 128-channel discriminator), 192×576, fp32
+   with TF32 off. 19a: each model's first batch-1 step on the card against
+   the CPU's (oneDNN off) from one seed with the same dropout masks: the
+   losses within 1e-3 relative, then each phase again on the card from the
+   CPU's input, its losses within 1e-3 and the nets it updates by the three
+   checks; the whole step's sign-flipped first updates reported. 19b: a
+   bf16 first step against fp32 (losses within 5e-2). 19c: the step timed
+   at batch 1 and 8 (or, where 8 does not fit, the largest of 4 and 2) and
+   profiled. 19d, beside 19a: ``python -m ...train`` for each model on
+   vKITTI-sized PNGs, two steps, each in a session of its own; the nets
+   load back. Neither model has an InstanceNorm: the kernel counts must not
+   move in phase 19.
 
 The last three lines
 are a JSON object with every kernel's numbers, the card's name and power
@@ -2139,28 +2156,33 @@ def s2d_params(state):
             for k, net in state.nets.items()}
 
 
+def copied(v, device):
+    """``v``'s tensors (in dicts, lists and tuples) copied to ``device``;
+    anything else as it is."""
+    import torch
+
+    if torch.is_tensor(v):
+        return v.detach().to(device, copy=True)
+    if isinstance(v, dict):
+        return {k: copied(x, device) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [copied(x, device) for x in v]
+    return v
+
+
 def s2d_snapshot(state, ctx, device="cpu"):
     """The nets' and optimizers' state dicts and the step context (carried
     tensors, metrics), copied to ``device``."""
-    import torch
-
-    def to(v):
-        if torch.is_tensor(v):
-            return v.detach().to(device, copy=True)
-        if isinstance(v, dict):
-            return {k: to(x) for k, x in v.items()}
-        return [to(x) for x in v]
-
     return ({k: copy.deepcopy(n.state_dict()) for k, n in state.nets.items()},
             {k: copy.deepcopy(o.state_dict())
-             for k, o in state.optimizers.items()}, to(ctx))
+             for k, o in state.optimizers.items()}, copied(ctx, device))
 
 
-def s2d_flip_shares(p0, a, b):
+def s2d_flip_shares(p0, a, b, names=S2D_NETS):
     """Per net: the share of parameters whose first update has another sign
     in ``a`` than in ``b`` (both from ``p0``)."""
     out = {}
-    for name in S2D_NETS:
+    for name in names:
         n = sum(v.numel() for v in p0[name].values())
         out[name] = sum(int((a[name][k] - v).sign().ne(
             (b[name][k] - v).sign()).sum()) for k, v in p0[name].items()) / n
@@ -2857,6 +2879,343 @@ def phase_rf_lw(cli):
     return out
 
 
+# The base my_seg_depth generation (S2D_base, S2D_alt) at the try size: the
+# nets each phase of a step updates, and how many Dis_en forwards draw
+# dropout masks in a step
+BASE_MODELS = ("S2D_base", "S2D_alt")
+BASE_H, BASE_W = S2D_H, S2D_W
+BASE_WIDTHS = {"S2D_base": {}, "S2D_alt": {}}  # overrides; empty: full width
+BASE_BATCHES = (1, 8)
+BASE_FALLBACK_BATCHES = (4, 2)  # timed in turn where batch 8 does not fit
+BASE_BF16_BATCH = 2
+BASE_CLI_SIZE = (1242, 375)     # the CLI's vKITTI-sized files (w, h)
+BASE_UPDATES = {
+    "S2D_base": {"real": (), "G": ("G_1", "G_2"), "frozen": (),
+                 "Seg": ("Seg_de",), "Dep": ("Dep_de",), "D": ("Dis_en",)},
+    "S2D_alt": {"G": ("G_1", "G_2"), "Feature": ("Feature",),
+                "Seg": ("Seg_de",), "Dep": ("Dep_de",), "D": ("Dis_en",)}}
+BASE_DRAWS = {"S2D_base": 3, "S2D_alt": 4}
+BASE_CHECK_EPS = 1e-3  # 19a's Adam eps on both sides (the models' is 1e-8)
+
+
+def base_config(model, **kw):
+    from cycle_depth_estimation_tpu_torch.config import (Config,
+                                                         apply_model_defaults)
+
+    over = {**BASE_WIDTHS[model], **kw}
+    return apply_model_defaults(
+        Config(**{"model": model, "device": "cuda", **over}), set(over))
+
+
+class MaskFeed:
+    """Dis_en's keep-masks of one step, drawn once: each call returns the
+    next set on ``device``; ``at(i, device)`` is a feed from the i-th."""
+
+    def __init__(self, masks, start=0, device="cpu"):
+        self.masks, self.i, self.device = masks, start, device
+
+    def __call__(self):
+        self.i += 1
+        return [m.to(self.device) for m in self.masks[self.i - 1]]
+
+    def at(self, i, device):
+        return MaskFeed(self.masks, i, device)
+
+
+def base_snapshot(state, ctx):
+    """``s2d_snapshot`` on the CPU with the mask feed left out, and the
+    feed's position."""
+    return (*s2d_snapshot(state, {k: v for k, v in ctx.items()
+                                  if k != "masks"}), ctx["masks"].i)
+
+
+def with_eps(state, eps):
+    for opt in state.optimizers.values():
+        for group in opt.param_groups:
+            group["eps"] = eps
+    return state
+
+
+def phase_base_card_vs_cpu(name):
+    """Phase 19a for ``name``: the first batch-1 step on the card and on the
+    CPU (oneDNN off) from one seed, with the same Dis_en masks (drawn on
+    the CPU from the seed and the step) and Adam's eps raised to 1e-3 on
+    both sides, as phase 17b does (at the models' 1e-8 the first update is
+    lr·sign(g), and rounding-sized gradients flip: 0.42 % of G_2's in the G
+    phase of S2D_base alone): the whole step's losses within 1e-3 relative;
+    then each phase again on the card from the CPU's state, carried tensors
+    and masks before it: its losses within 1e-3 and the nets it updates by
+    the three checks. Over the whole step the parameter distances and
+    sign-flipped first updates are reported, not held: a later phase reads
+    an earlier one's updated weights."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    batch = s2d_batch(1, seed=17, size=(BASE_H, BASE_W))
+    t = time.perf_counter()
+    with torch.backends.mkldnn.flags(enabled=False):
+        cpu_model = create_model(base_config(name, device="cpu"))
+        cpu_state = with_eps(cpu_model.init_state(), BASE_CHECK_EPS)
+        p0 = s2d_params(cpu_state)
+        ctx = cpu_model._ctx(cpu_state, batch)
+        draw = ctx["masks"]
+        feed = MaskFeed([draw() for _ in range(BASE_DRAWS[name])])
+        ctx["masks"] = feed
+        for net in cpu_state.nets.values():
+            net.train()
+        snaps = []
+        for _, phase in cpu_model.PHASES:
+            snaps.append(base_snapshot(cpu_state, ctx))
+            phase(cpu_model, cpu_state, ctx)
+        snaps.append(base_snapshot(cpu_state, ctx))
+    if feed.i != BASE_DRAWS[name]:
+        raise AssertionError(f"{name}: {feed.i} Dis_en forwards drew masks")
+    m_cpu = {k: float(v) for k, v in ctx["metrics"].items()}
+    cpu_after = s2d_params(cpu_state)
+    del cpu_model, cpu_state, ctx
+    cpu_s = time.perf_counter() - t
+    model = create_model(base_config(name))
+    state = with_eps(model.init_state(), BASE_CHECK_EPS)
+    state, m = model.train_step(state, on(batch, "cuda"))
+    m_card = {k: float(v) for k, v in m.items()}
+    card_after = s2d_params(state)
+    rel = rel_loss_diffs(m_card, m_cpu)
+    log(f"phase 19a {name}: adam_eps {BASE_CHECK_EPS:g}: whole step, card vs "
+        f"CPU ({cpu_s:.1f} s) first-step losses, relative: "
+        + " ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+    if not all(math.isfinite(v) for v in (*m_card.values(),
+                                          *m_cpu.values())):
+        raise AssertionError(f"{name} losses: card {m_card}, CPU {m_cpu}")
+    bad = {k: v for k, v in rel.items()
+           if not k.startswith("acc") and v > S2D_CPU_LOSS_REL}
+    lrs = {k: o.param_groups[0]["lr"] for k, o in state.optimizers.items()}
+    flips = s2d_flip_shares(p0, card_after, cpu_after, model.model_names)
+    out = {}
+    for net in model.model_names:
+        nums = s2d_params_close(card_after[net], cpu_after[net], lrs[net])[1]
+        out[net] = {**nums, "flips": flips[net]}
+        log(f"phase 19a {name}:   whole step {net}: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in nums.items())
+            + f"; sign-flipped updates {flips[net]:.2e}")
+    for i, (pname, phase) in enumerate(model.PHASES):
+        (nets, opts, pre, at), (nets_after, _, post, _) = (snaps[i],
+                                                          snaps[i + 1])
+        for k, net in state.nets.items():
+            net.load_state_dict(nets[k])
+            state.optimizers[k].load_state_dict(opts[k])
+        cctx = {**copied(pre, "cuda"), "masks": feed.at(at, "cuda")}
+        phase(model, state, cctx)
+        got = {k: float(v) for k, v in cctx["metrics"].items()
+               if k not in pre["metrics"]}
+        prel = rel_loss_diffs(got, {k: float(post["metrics"][k])
+                                    for k in got})
+        bad.update({f"{pname}:{k}": v for k, v in prel.items()
+                    if not k.startswith("acc") and v > S2D_CPU_LOSS_REL})
+        after = s2d_params(state)
+        for net in BASE_UPDATES[name][pname]:
+            ok, nums = s2d_params_close(
+                after[net], {n: nets_after[net][n] for n in after[net]},
+                lrs[net])
+            log(f"phase 19a {name}:   phase {pname} from the CPU's input, "
+                f"{net}: losses " + " ".join(
+                    f"{k} {v:.1e}" for k, v in prel.items()) + "; "
+                + ", ".join(f"{k} {v:.3g}" for k, v in nums.items()))
+            if not ok:
+                bad[f"{pname}:{net}"] = nums
+    del model, state
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"{name} card vs CPU: {bad}")
+    return out
+
+
+def phase_base_bf16(name):
+    """Phase 19b for ``name``: the first bf16 step against the fp32 one from
+    one seed and batch (``BASE_BF16_BATCH``): losses within 5e-2 relative,
+    all finite."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    batch = on(s2d_batch(BASE_BF16_BATCH, seed=19, size=(BASE_H, BASE_W)),
+               "cuda")
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        model = create_model(base_config(name, dtype=dtype))
+        state = model.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = model.train_step(state, batch)
+        torch.cuda.synchronize()
+        runs[dtype] = ({k: float(v) for k, v in m.items()},
+                       torch.cuda.max_memory_allocated())
+        del model, state
+        torch.cuda.empty_cache()
+    (m32, pk32), (m16, pk16) = runs["float32"], runs["bfloat16"]
+    rel = {k: v for k, v in rel_loss_diffs(m16, m32).items()
+           if not k.startswith("acc")}
+    log(f"phase 19b {name}: bf16 vs fp32, bs{BASE_BF16_BATCH}: first-step "
+        "losses relative: " + " ".join(f"{k} {v:.1e}" for k, v in rel.items())
+        + f"; peak fp32 {pk32 / 2 ** 30:.2f} GiB, bf16 {pk16 / 2 ** 30:.2f}"
+        " GiB")
+    if not all(math.isfinite(v) for v in m16.values()) or \
+            max(rel.values()) > BF16_LOSS_REL:
+        raise AssertionError(f"{name} bf16 vs fp32: {m16} against {m32}")
+    return {"rel": rel, "peak_fp32": pk32, "peak_bf16": pk16}
+
+
+def phase_base_timed(name):
+    """Phase 19c for ``name``: the fp32 step timed (one warm-up, three
+    timed) and profiled at each of ``BASE_BATCHES``; where the last does
+    not fit in the card's memory, the largest of ``BASE_FALLBACK_BATCHES``
+    that does, said so."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    out = {}
+    for n in BASE_BATCHES:
+        tries = (n,) if n == BASE_BATCHES[0] else (n, *BASE_FALLBACK_BATCHES)
+        for k in tries:
+            model = create_model(base_config(name))
+            state = model.init_state()
+            batch = on(s2d_batch(k, seed=23, size=(BASE_H, BASE_W)), "cuda")
+            try:
+                state, dt, peak = timed_steps(model, state, batch)
+            except torch.cuda.OutOfMemoryError:
+                del model, state, batch
+                torch.cuda.empty_cache()
+                log(f"phase 19c {name}: batch {k} does not fit")
+                continue
+            flops = sum(base_step_flops(name, k)[0].values())
+            log(f"phase 19c {name}: train step bs{k} {BASE_H}x{BASE_W} fp32 "
+                f"(TF32 off): {dt * 1e3:.1f} ms/step = {k / dt:.2f} img/s, "
+                f"{flops / dt / 1e12:.1f} TFLOP/s; peak memory "
+                f"{peak / 2 ** 30:.2f} GiB")
+            profile_step(f"phase 19c {name} bs{k}", model, state, batch)
+            out[f"bs{k}"] = {"ms": dt * 1e3, "img_s": k / dt, "peak": peak}
+            del model, state, batch
+            torch.cuda.empty_cache()
+            break
+        else:
+            raise AssertionError(f"{name}: no batch of {tries} fits")
+    return out
+
+
+def base_step_flops(name, n):
+    """The FLOPs of one train step of ``name`` at batch ``n`` by phase,
+    counted by ``torch.utils.flop_counter`` on the meta device (no device
+    needed), and its parameter count."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    model = create_model(base_config(name, batch_size=n, device="cpu"))
+    model.device = torch.device("meta")
+    with torch.device("meta"):
+        state = model.init_state()
+        batch = {k: torch.empty_like(v) for k, v in s2d_batch(
+            n, size=(BASE_H, BASE_W)).items()}
+    counter, by_phase = FlopCounterMode(display=False), {}
+    with counter:
+        ctx = model._ctx(state, batch)
+        for pname, phase in model.PHASES:
+            before = counter.get_total_flops()
+            phase(model, state, ctx)
+            by_phase[pname] = counter.get_total_flops() - before
+    params = sum(p.numel() for net in state.nets.values()
+                 for p in net.parameters())
+    return by_phase, params
+
+
+def start_base_clis():
+    """Phase 19d: ``python -m ...train --model S2D_base`` and ``--model
+    S2D_alt`` at full width on vKITTI-sized files, two steps each, each in
+    a process (and session) of its own; the caller ends them."""
+    run = {"dir": tempfile.TemporaryDirectory()}
+    tmp = run["dir"].name
+    files = write_try_files(os.path.join(tmp, "data"), n=2,
+                            size=BASE_CLI_SIZE)
+    for name in BASE_MODELS:
+        args = [
+            "--model", name, *files, "--checkpoints_dir",
+            os.path.join(tmp, "ck"), "--name", name, "--niter", "1",
+            "--niter_decay", "0", "--save_epoch_freq", "1", "--print_freq",
+            "1", "--display_freq", "2", "--num_threads", "2", "--device",
+            "cuda",
+            *(f for k, v in BASE_WIDTHS[name].items() for f in (
+                f"--{k}", *map(str, v if isinstance(v, list) else [v])))]
+        run[name] = start_cli(TRAIN_CLI, args)
+    return run
+
+
+def end_base_clis(run):
+    """Wait for both CLIs; each wrote its nets for epoch 1 after two steps,
+    and they load back."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    seconds = {}
+    for name in BASE_MODELS:
+        seconds[name] = end_cli(run.pop(name), f"{name} train CLI")[1]
+        model = create_model(base_config(name, device="cpu"))
+        model.cfg = model.cfg.replace(checkpoints_dir=os.path.join(
+            run["dir"].name, "ck"), name=name)
+        expr = model.cfg.expr_dir()
+        st = torch.load(os.path.join(expr, "1_train_state.pth"),
+                        map_location="cpu", weights_only=True)
+        if st["step"] != 2:
+            raise AssertionError(f"{name} CLI: step {st['step']}, want 2")
+        model.load_nets(model.init_state(), 1)
+    run["dir"].cleanup()
+    return seconds
+
+
+def phase_s2d_base_generation():
+    """Phase 19: S2D_base and S2D_alt at full width (the JAX defaults:
+    DenseNet-169 GeneralNet2 with 3 resnet blocks in G_1, ndf 64,
+    d_repeat_num 4; S2D_alt's two 3-block GBase encoders, FeatureNet and
+    the 128-channel Dis_en), 192×576, fp32 with TF32 off: 19a, 19b and 19c
+    for each, the two train CLIs (19d) beside 19a. Neither model has an
+    InstanceNorm: the kernel counts must not move."""
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm, instance_norm_backward)
+    from cycle_depth_estimation_tpu_torch.ops.kernels.int8_epilogue import (
+        fused_in_epilogue)
+
+    counters = (instance_norm, instance_norm_backward, fused_in_epilogue)
+    for k in counters:
+        k.launches = 0
+    for name in BASE_MODELS:
+        cfg = base_config(name)
+        if (cfg.dataset_mode, cfg.batch_size, cfg.fine_size) != ("try", 1,
+                                                                 BASE_H):
+            raise AssertionError(f"{name} defaults: {cfg}")
+    clis = start_base_clis()
+    out = {}
+    try:
+        for name in BASE_MODELS:
+            out[name] = {"card_vs_cpu": phase_base_card_vs_cpu(name)}
+    finally:
+        cli_s = end_base_clis(clis)
+    for name in BASE_MODELS:
+        out[name]["bf16"] = phase_base_bf16(name)
+        out[name].update(phase_base_timed(name))
+    moved = {k.__name__: k.launches for k in counters if k.launches}
+    if moved:
+        raise AssertionError(f"S2D_base/S2D_alt launched InstanceNorm or "
+                             f"epilogue kernels: {moved}")
+    log("phase 19 ok: no InstanceNorm or epilogue launch; "
+        + ", ".join(f"python -m cycle_depth_estimation_tpu_torch.train "
+                    f"--model {n} (full width, vKITTI-sized PNGs, 2 steps) "
+                    f"{s:.1f} s" for n, s in cli_s.items())
+        + "; the nets load back")
+    return out
+
+
 LOADERS = {  # name: the train CLI's loader flags
     "serial": ["--num_threads", "0"],
     "4 threads (the default)": ["--num_threads", "4"],
@@ -3032,6 +3391,7 @@ def main() -> int:
         if "resume" in seg_cli:
             end_cli(seg_cli.pop("resume"), "SegCycle train CLI resume")
     s2d = phase_s2d()
+    base = phase_s2d_base_generation()
     rf_cli = start_rf_lw_cli()  # beside phase 18b's checks
     try:
         rf, rf_lw = counts_of(lambda: phase_rf_lw(rf_cli))
@@ -3115,6 +3475,10 @@ def main() -> int:
         + f" img/s ({S2D_H}x{S2D_W}); rf_lw fp32 "
         + ", ".join(f"bs{n} {rf[f'bs{n}']['img_s']:.2f}" for n in RF_BATCHES)
         + f" img/s ({RF_H}x{RF_W}); "
+        + "; ".join(f"{m} fp32 " + ", ".join(
+            f"{k} {v['img_s']:.2f}" for k, v in base[m].items()
+            if k.startswith("bs")) for m in BASE_MODELS)
+        + f" img/s ({BASE_H}x{BASE_W}); "
         "kernel "
         "ms are sums over the calls of one forward (23: instance_norm in "
         "bf16, int8_epilogue in bf16 up mode) or of one fp32 CycleGAN train "

@@ -1,6 +1,6 @@
 """Config of the port: the subset of the JAX package's ``Config`` that the
-test CLI, the CycleGAN, pix2pix, SegCycle, T2Net (``seg``), S2D and
-RefineNet-LW (``rf_lw``, ``rf_lw7``) models,
+test CLI, the CycleGAN, pix2pix, SegCycle, T2Net (``seg``), S2D,
+``S2D_base``, ``S2D_alt`` and RefineNet-LW (``rf_lw``, ``rf_lw7``) models,
 the data layer and the train CLI read, with the same field
 names, defaults, reference flag aliases (``--loadSize``, ``--netD``,
 ``--lambda_A`` …) and two-phase parse (base flags, then per-model defaults
@@ -29,6 +29,7 @@ _FLAG_ALIASES = {
     "lambda_A": "lambda_a",
     "lambda_B": "lambda_b",
     "lambda_L1": "lambda_l1",
+    "lr_D": "lr_d",
 }
 
 
@@ -90,6 +91,7 @@ class Config:
     lr: float = 2e-4
     adam_eps: float = 1e-8          # S2D's Adam eps (1e-3 damps the first
                                     # step's sign(g)·lr in parity checks)
+    lr_d: float = 8e-5              # S2D_alt's Dis_en Adam (--lr_D)
     no_lsgan: bool = False
     pool_size: int = 50
     lr_policy: str = "lambda"
@@ -108,6 +110,10 @@ class Config:
     dense_block_config: Optional[List[int]] = None  # None: (6, 12, 32, 32)
     dense_growth_rate: Optional[int] = None         # None: 32
     s2d_mid_nc: Optional[int] = None                # None: 1024
+    # S2D_base's feature discriminator: conditioned on the seg label map
+    # (the dis_seg generation), and its depth (G2Blocks trains 3)
+    dis_seg: bool = False
+    d_repeat_num: int = 4
     # RefineNet-LW: the ResNet trunk's blocks per layer; None is rf_lw's
     # (3, 4, 23, 3) and rf_lw7's (3, 4, 6, 3)
     resnet_layers: Optional[List[int]] = None
@@ -153,6 +159,9 @@ MODEL_DEFAULTS = {
     "S2D": dict(dataset_mode="try", batch_size=1, fine_size=192),
     "rf_lw": dict(dataset_mode="try", batch_size=1, fine_size=192),
     "rf_lw7": dict(dataset_mode="try", batch_size=1, fine_size=192),
+    "S2D_base": dict(dataset_mode="try", batch_size=1, fine_size=192),
+    "S2D_alt": dict(dataset_mode="try", batch_size=1, fine_size=192,
+                    net_g="3blocks"),
 }
 
 

@@ -20,14 +20,25 @@ the reference's state-dict names:
   so its α has two keys and is one parameter;
 - ``DeconvBlock`` (LeakyReLU(0.02), then a 4×4 stride-2 transposed conv,
   optionally BatchNorm), the block of RefineNet-LW's ``segd`` heads;
-- ``get_masks``, ``bce_dep_loss`` and ``bce_dep_loss_truncated``.
+- ``get_masks``, ``bce_dep_loss`` and ``bce_dep_loss_truncated``;
+- the base my_seg_depth generation. ``S2D_base`` (networks2.py): ``G1``
+  with ``block_type='resnet'``, ``GeneralNet2`` (standard ``Transition``s,
+  five skip features), the skip decoders ``SEG2``/``DEP2``,
+  ``CLASS_WEIGHTS_28`` and ``DropDiscriminator`` (live Dropout2d, its
+  keep-masks passed in, optionally conditioned on the label map).
+  ``S2D_alt`` (networks.py): the ``GBase`` encoders, ``FeatureNet``, the
+  skip decoders ``SEGAlt``/``DEPAlt``; and ``PSPModule``. ``GeneralNet``,
+  ``GeneralNet2`` and ``FeatureNet`` share one ``PspHead``. flax infers
+  each layer's input width; here the widths come from the nets they follow
+  (``feature_channels``, G_1's 64).
 
 All BatchNorms are ``ops/layers.BatchNorm`` (flax's running-variance
 update). Each net's ``jax_sites`` names its parts as the JAX module's
 variable tree does, which ``utils/weights.s2d_state_dicts_from_jax`` reads.
 A reference ``.pth`` loads as it is: ``load_state_dict`` drops the
-DataParallel ``module.`` prefix, and ``RDep`` the ``up0``/``dep_out``/``norm``
-entries its forward never uses, as the JAX importers do.
+DataParallel ``module.`` prefix, ``RDep`` the ``up0``/``dep_out``/``norm``
+entries its forward never uses and ``SEG2``/``DEP2`` their DeconvBlocks'
+unused ``bn``, as the JAX importers do.
 
 The JAX package's ``CDE_DENSE_CHUNKED`` dense blocks compute the same
 function with the same variables in another memory layout for the TPU;
@@ -45,7 +56,8 @@ from torch import nn
 
 from ..ops.init import init_weights
 from ..ops.layers import (BatchNorm, Conv2d, ConvTranspose2d, PReLU,
-                          avg_pool, resize_bilinear)
+                          avg_pool, resize_bilinear, resize_nearest)
+from .networks import ResnetBlock
 
 LEAK = 0.02
 
@@ -161,27 +173,42 @@ class DualResnetBlock(nn.Module, Sites):
 
 class G1(_ReferenceNet):
     """G_1 (networks5_ds.py:26-66): stem, one 6-layer dense block (growth
-    32), a 3×3 entry conv to 64 channels and ``n_blocks`` dual residual
-    blocks; 64 channels at half the input size."""
+    32), a 3×3 entry conv to 64 channels and ``n_blocks`` residual blocks;
+    64 channels at half the input size. ``block_type`` 'dual' is S2D's
+    ``DualResnetBlock``; 'resnet' the base generation's two-conv
+    ``networks.ResnetBlock`` with BatchNorm (my_seg_depth/networks2.py:
+    285-329; keys ``model.{4+i}.conv_block.{1,2,5,6}``)."""
 
-    def __init__(self, n_blocks: int = 3):
+    def __init__(self, n_blocks: int = 3, block_type: str = "dual"):
         super().__init__()
+        if block_type not in ("dual", "resnet"):
+            raise ValueError(f"unknown block_type [{block_type}]")
+        self.block_type = block_type
+        block = (DualResnetBlock if block_type == "dual"
+                 else lambda d: ResnetBlock(d, norm="batch"))
         self.features = nn.Sequential(OrderedDict(_stem() + [
             ("denseblock1", DenseBlock(6, 64, 32))]))
         self.model = nn.Sequential(
             nn.ReflectionPad2d(1), Conv2d(64 + 6 * 32, 64, 3, bias=False),
-            BatchNorm(64), nn.ReLU(),
-            *(DualResnetBlock(64) for _ in range(n_blocks)))
+            BatchNorm(64), nn.ReLU(), *(block(64) for _ in range(n_blocks)))
 
     def forward(self, x):
         return self.model(self.features(x))
 
     def jax_sites(self):
         f, m = self.features, self.model
-        return {"conv0": f.conv0, "norm0": f.norm0,
-                "denseblock1": f.denseblock1, "entry_conv": m[1],
-                "entry_norm": m[2],
-                **{f"block{i}": b for i, b in enumerate(m[4:])}}
+        sites = {"conv0": f.conv0, "norm0": f.norm0,
+                 "denseblock1": f.denseblock1, "entry_conv": m[1],
+                 "entry_norm": m[2]}
+        for i, b in enumerate(m[4:]):
+            if self.block_type == "dual":
+                sites[f"block{i}"] = b
+            else:
+                c = b.conv_block
+                sites.update({f"block{i}.conv1": c[1], f"block{i}.norm1": c[2],
+                              f"block{i}.conv2": c[5],
+                              f"block{i}.norm2": c[6]})
+        return sites
 
 
 class PspTrans(nn.Module, Sites):
@@ -205,6 +232,34 @@ class PspTrans(nn.Module, Sites):
                 "conv3x3": self.trans[3]}
 
 
+class PspHead(nn.ModuleList, Sites):
+    """The 4-branch dilated PSP head of ``GeneralNet``, ``GeneralNet2`` and
+    ``FeatureNet`` (the JAX ``psp_head``, networks5_ds.py:394-409): BN,
+    ReLU, four ``mid_nc``/4-channel branches (1×1, 1×1, a 2×2 at dilation 2
+    padded by 1 — the reference's quirk, which keeps the size — and a 3×3
+    at dilation 2), concatenated, BN. Keys ``psp.{0..6}``, the JAX names
+    flat in the owner's (``psp_norm_in``, ``psp_b0``…, ``psp_norm_out``)."""
+
+    def __init__(self, num_input: int, mid_nc: int):
+        q = mid_nc // 4
+        super().__init__([
+            BatchNorm(num_input), nn.ReLU(),
+            Conv2d(num_input, q, 1, bias=False),
+            Conv2d(num_input, q, 1, bias=False),
+            Conv2d(num_input, q, 2, padding=1, dilation=2, bias=False),
+            Conv2d(num_input, q, 3, padding=2, dilation=2, bias=False),
+            BatchNorm(mid_nc)])
+
+    def forward(self, x):
+        h = self[1](self[0](x))
+        return self[6](torch.cat([self[k](h) for k in range(2, 6)], 1))
+
+    def jax_sites(self):
+        return {"psp_norm_in": self[0],
+                **{f"psp_b{j}": self[j + 2] for j in range(4)},
+                "psp_norm_out": self[6]}
+
+
 class GeneralNet(_ReferenceNet):
     """General_net, G_2 (networks5_ds.py:366-477). ``forward(x, mode)``
     returns (the PSP head's ``mid_nc`` channels at 1/16 of the image, the
@@ -225,13 +280,7 @@ class GeneralNet(_ReferenceNet):
                 nf = 2 * (nf // 4)
         self.features = nn.Sequential(OrderedDict(layers))
         self.PSP = nn.ModuleList(psp)
-        q = mid_nc // 4
-        self.psp = nn.ModuleList([
-            BatchNorm(nf), nn.ReLU(), Conv2d(nf, q, 1, bias=False),
-            Conv2d(nf, q, 1, bias=False),
-            Conv2d(nf, q, 2, padding=1, dilation=2, bias=False),
-            Conv2d(nf, q, 3, padding=2, dilation=2, bias=False),
-            BatchNorm(mid_nc)])
+        self.psp = PspHead(nf, mid_nc)
         self.feature_channels = tuple(channels)
 
     def forward(self, x, mode: str = "R"):
@@ -243,9 +292,7 @@ class GeneralNet(_ReferenceNet):
             feats.append(h.detach())
             if i < len(self.PSP):
                 h = self.PSP[i](h)
-        p = self.psp
-        h = p[1](p[0](h))
-        return p[6](torch.cat([p[k](h) for k in range(2, 6)], 1)), feats
+        return self.psp(h), feats
 
     def jax_sites(self):
         f = self.features
@@ -253,9 +300,7 @@ class GeneralNet(_ReferenceNet):
                 **{f"denseblock{i + 1}": getattr(f, f"denseblock{i + 1}")
                    for i in range(len(self.feature_channels))},
                 **{f"psptrans{i}": t for i, t in enumerate(self.PSP)},
-                "psp_norm_in": self.psp[0],
-                **{f"psp_b{j}": self.psp[j + 2] for j in range(4)},
-                "psp_norm_out": self.psp[6]}
+                **self.psp.jax_sites()}
 
 
 # ---------------------------------------------------------------------------
@@ -451,6 +496,427 @@ class DeconvBlock(nn.Module, Sites):
     def jax_sites(self):
         return ({"deconv": self.deconv} if self.bn is None
                 else {"deconv": self.deconv, "bn": self.bn})
+
+
+# ---------------------------------------------------------------------------
+# the base my_seg_depth generation: S2D_base (networks2.py) and S2D_alt
+# (networks.py)
+# ---------------------------------------------------------------------------
+
+
+class Transition(nn.Sequential, Sites):
+    """torchvision's _Transition (networks5_ds.py:148-155): BN, ReLU, a 1×1
+    conv to ``num_output`` channels, avgpool 2."""
+
+    def __init__(self, num_input: int, num_output: int):
+        super().__init__(OrderedDict([
+            ("norm", BatchNorm(num_input)), ("relu", nn.ReLU()),
+            ("conv", Conv2d(num_input, num_output, 1, bias=False)),
+            ("pool", nn.AvgPool2d(2, 2))]))
+
+    def jax_sites(self):
+        return {"norm": self.norm, "conv": self.conv}
+
+
+class _DenseTrunk(_ReferenceNet):
+    """``features.denseblock{i}`` with a halving ``features.transition{i}``
+    between blocks, then the PSP head (``psp``); ``feature_channels`` are
+    the dense blocks' output widths."""
+
+    def _build(self, layers, num_input, growth_rate, block_config, mid_nc):
+        nf, channels = num_input, []
+        for i, n in enumerate(block_config):
+            layers.append((f"denseblock{i + 1}",
+                           DenseBlock(n, nf, growth_rate)))
+            nf += n * growth_rate
+            channels.append(nf)
+            if i != len(block_config) - 1:
+                layers.append((f"transition{i + 1}", Transition(nf, nf // 2)))
+                nf //= 2
+        self.features = nn.Sequential(OrderedDict(layers))
+        self.psp = PspHead(nf, mid_nc)
+        self.n_blocks = len(block_config)
+        return tuple(channels)
+
+    def _trunk(self, h):
+        """Each dense block's output, and the PSP head's output."""
+        feats = []
+        for i in range(self.n_blocks):
+            h = getattr(self.features, f"denseblock{i + 1}")(h)
+            feats.append(h)
+            if i < self.n_blocks - 1:
+                h = getattr(self.features, f"transition{i + 1}")(h)
+        return feats, self.psp(h)
+
+    def _trunk_sites(self):
+        f = self.features
+        return {**{n: getattr(f, n) for i in range(self.n_blocks)
+                   for n in (f"denseblock{i + 1}", f"transition{i + 1}")
+                   if hasattr(f, n)},
+                **self.psp.jax_sites()}
+
+
+class GeneralNet2(_DenseTrunk):
+    """General_net of the base generation (my_seg_depth/networks2.py:
+    395-481): the DenseNet trunk with standard transitions, then the PSP
+    head. ``forward(x, mode)`` returns (five skip features, the head's
+    ``mid_nc`` channels at 1/16): the stem's post-ReLU output at 1/2 and
+    the four dense blocks' outputs (64, 256, 512, 1280 and 1664 channels at
+    (6, 12, 32, 32); ``feature_channels``), none detached. Mode 'R' runs the
+    stem on an image; mode 'S' takes G_1's 64 channels through ``norm0`` and
+    ReLU only, ``conv0`` kept and unused."""
+
+    def __init__(self, mid_nc: int = 1024, growth_rate: int = 32,
+                 block_config: Sequence[int] = (6, 12, 32, 32)):
+        super().__init__()
+        self.feature_channels = (64, *self._build(
+            _stem(), 64, growth_rate, block_config, mid_nc))
+
+    def forward(self, x, mode: str = "R"):
+        f = self.features
+        h = f.relu0(f.norm0(f.conv0(x) if mode == "R" else x))
+        feats, out = self._trunk(h)
+        return [h, *feats], out
+
+    def jax_sites(self):
+        f = self.features
+        return {"conv0": f.conv0, "norm0": f.norm0, **self._trunk_sites()}
+
+
+class FeatureNet(_DenseTrunk):
+    """Feature_net (my_seg_depth/networks.py:226-288): a stemless DenseNet
+    (growth 48, blocks (6, 8, 8)) over ``input_nc`` feature channels, then
+    the PSP head. Returns (the three dense blocks' outputs, the head's
+    ``mid_nc`` channels)."""
+
+    def __init__(self, input_nc: int = 128, mid_nc: int = 1024,
+                 growth_rate: int = 48,
+                 block_config: Sequence[int] = (6, 8, 8)):
+        super().__init__()
+        self.feature_channels = self._build([], input_nc, growth_rate,
+                                            block_config, mid_nc)
+
+    def forward(self, x):
+        return self._trunk(x)
+
+    def jax_sites(self):
+        return self._trunk_sites()
+
+
+class _SkipDecoder(_ReferenceNet):
+    """The base generation's SEG/DEP body (networks2.py:489-566): adapters
+    ``trans_0`` (ConvTranspose k2 s2 to 64) and ``trans_1..4`` (1×1 to 128,
+    256, 512, 1024) over GeneralNet2's five features (``feature_nc``), then
+    ``Up.0..3`` — ``DeconvBlock``s with a ReLU (slope 0), each taking the
+    running map and the next skip — and the 1×1 head ``Up.4`` over the last
+    map and ``trans_0``'s, at full resolution. A reference ``.pth`` also
+    holds each DeconvBlock's unused ``bn``; ``load_state_dict`` drops it.
+    JAX names: ``dec.trans_*``, ``dec.up{i}``, ``dec.head``."""
+
+    unused_prefixes = tuple(f"Up.{i}.bn." for i in range(4))
+
+    def __init__(self, out_c: int, mid_nc: int = 1024,
+                 feature_nc: Sequence[int] = (64, 256, 512, 1280, 1664)):
+        super().__init__()
+        self.trans_0 = ConvTranspose2d(feature_nc[0], 64, 2, 2)
+        widths = (128, 256, 512, 1024)
+        for i, c in enumerate(widths):
+            setattr(self, f"trans_{i + 1}", Conv2d(feature_nc[i + 1], c, 1))
+        ins = (mid_nc, 512, 256, 256)
+        outs = (512, 256, 256, 256)
+        self.Up = nn.ModuleList(
+            [DeconvBlock(a + s, b, negative_slope=0.0)
+             for a, s, b in zip(ins, widths[::-1], outs)]
+            + [Conv2d(outs[-1] + 64, out_c, 1)])
+
+    def decode(self, features, x):
+        f = [getattr(self, f"trans_{i}")(features[i]) for i in range(5)]
+        h = x
+        for i in range(4):
+            h = self.Up[i](torch.cat([h, f[4 - i]], 1))
+        return self.Up[4](torch.cat([h, f[0]], 1))
+
+    def jax_sites(self):
+        return {**{f"dec.trans_{i}": getattr(self, f"trans_{i}")
+                   for i in range(5)},
+                **{f"dec.up{i}": self.Up[i] for i in range(4)},
+                "dec.head": self.Up[4]}
+
+
+class SEG2(_SkipDecoder):
+    """SEG of the base generation (networks2.py:489-531): the skip decoder,
+    then BN (``activation_seg.0``) and LeakyReLU(0.01)."""
+
+    def __init__(self, n_cls: int = 28, mid_nc: int = 1024,
+                 feature_nc: Sequence[int] = (64, 256, 512, 1280, 1664)):
+        super().__init__(n_cls, mid_nc, feature_nc)
+        self.activation_seg = nn.Sequential(BatchNorm(n_cls),
+                                            nn.LeakyReLU(0.01))
+
+    def forward(self, features, x):
+        return self.activation_seg(self.decode(features, x))
+
+    def jax_sites(self):
+        return {**super().jax_sites(), "act_norm": self.activation_seg[0]}
+
+
+class DEP2(_SkipDecoder):
+    """DEP of the base generation (networks2.py:534-566): the skip decoder
+    to one channel, tanh."""
+
+    def __init__(self, mid_nc: int = 1024,
+                 feature_nc: Sequence[int] = (64, 256, 512, 1280, 1664)):
+        super().__init__(1, mid_nc, feature_nc)
+
+    def forward(self, features, x):
+        return torch.tanh(self.decode(features, x))
+
+
+# the 28-class CE weights of S2D_base (my_seg_depth/model2.py:175-204)
+CLASS_WEIGHTS_28 = (
+    1.4, 0.8, 1.2, 1.4, 1.3, 0.8, 1.3, 1.4, 1.4, 1.4, 1.4, 1.4, 1.4, 1.5,
+    1.5, 1.2, 1.3, 1.1, 2.0, 2.0, 1.1, 1.8, 1.8, 1.8, 1.8, 1.8, 1.8, 1.8,
+)
+
+
+class DropDiscriminator(_ReferenceNet):
+    """The base generation's feature Discriminator (networks2.py:331-353):
+    ``repeat_num − 1`` × [conv 4×4 stride 2 doubling the width, LeakyReLU
+    0.01, Dropout2d 0.2] (``main.{3i}``), then the bias-free 1×1 head
+    ``conv1``; the output's channel dim squeezed. ``input_nc`` is what comes
+    in (G_1's features); the doubling starts from ``conv_dim``. With
+    ``sege`` (the dis_seg generation, dis_seg/networks2.py:331-354) the
+    label map, nearest-resized to half its size, goes in front of the
+    input, and the doubling starts from ``conv_dim + 1``.
+
+    ``forward(x, sege=None, masks=None)``: in train mode ``masks`` are the
+    keep-masks of the dropout layers, (N, C) booleans each (``widths``);
+    kept channels are scaled by 1/0.8 as the JAX ``nn.Dropout`` does.
+    Without them the ``Dropout2d`` modules draw from torch's generator."""
+
+    KEEP = 0.8
+
+    def __init__(self, input_nc: int = 64, conv_dim: int = 64,
+                 repeat_num: int = 4, dis_seg: bool = False):
+        super().__init__()
+        cur, dim = input_nc + dis_seg, conv_dim + dis_seg
+        layers, widths = [], []
+        for _ in range(1, repeat_num):
+            dim *= 2
+            layers += [Conv2d(cur, dim, 4, 2, 1), nn.LeakyReLU(0.01),
+                       nn.Dropout2d(1 - self.KEEP)]
+            widths.append(dim)
+            cur = dim
+        self.main = nn.Sequential(*layers)
+        self.conv1 = Conv2d(cur, 1, 1, bias=False)
+        self.widths = tuple(widths)
+
+    def draw_masks(self, n: int, generator: torch.Generator):
+        """One set of keep-masks for a batch of ``n``, on the CPU."""
+        return [torch.rand(n, c, generator=generator) < self.KEEP
+                for c in self.widths]
+
+    def forward(self, x, sege=None, masks=None):
+        if sege is not None:
+            h, w = sege.shape[2:]
+            x = torch.cat([resize_nearest(sege, (h // 2, w // 2)), x], 1)
+        h = x
+        for i in range(len(self.widths)):
+            conv, act, drop = self.main[3 * i:3 * i + 3]
+            h = act(conv(h))
+            if masks is None:
+                h = drop(h)
+            elif self.training:
+                keep = masks[i].to(h.device)[:, :, None, None]
+                h = torch.where(keep, h / self.KEEP, torch.zeros_like(h))
+        return self.conv1(h)[:, 0]
+
+    def jax_sites(self):
+        return {**{f"conv{i + 1}": self.main[3 * i]
+                   for i in range(len(self.widths))},
+                "head": self.conv1}
+
+
+class PSPModule(nn.Module, Sites):
+    """PSPModule (my_seg_depth/networks.py:12-30): for each size s of
+    ``sizes`` an adaptive average pool to s×s (``nn.AdaptiveAvgPool2d``:
+    bin i of an axis covers [⌊i·L/s⌋, ⌈(i+1)·L/s⌉), the JAX
+    ``adaptive_avg_pool``'s non-uniform bins) and a bias-free 1×1 conv
+    (``stages.{i}.1``), resized back bilinearly (half-pixel centres);
+    those and the input concatenated, a 1×1 ``bottleneck`` with a bias,
+    ReLU."""
+
+    def __init__(self, features: int, out_features: int = 1024,
+                 sizes: Sequence[int] = (1, 2, 3, 6)):
+        super().__init__()
+        self.stages = nn.ModuleList(nn.Sequential(
+            nn.AdaptiveAvgPool2d((s, s)), Conv2d(features, features, 1,
+                                                 bias=False))
+            for s in sizes)
+        self.bottleneck = Conv2d(features * (len(sizes) + 1), out_features, 1)
+
+    def forward(self, x):
+        size = x.shape[2:]
+        priors = [resize_bilinear(stage(x), size, align_corners=False)
+                  for stage in self.stages]
+        return F.relu(self.bottleneck(torch.cat([*priors, x], 1)))
+
+    def jax_sites(self):
+        return {**{f"stage{i}_conv": s[1] for i, s in enumerate(self.stages)},
+                "bottleneck": self.bottleneck}
+
+
+class GBase(_ReferenceNet):
+    """G_1 of S2D_alt (my_seg_depth/networks.py:83-127): a CycleGAN encoder
+    with BatchNorm — reflect pad 3, 7×7 conv, two stride-2 downs,
+    ``n_blocks`` two-conv ``ResnetBlock``s (``model.{10+i}``), reflect pad
+    3, a 7×7 head to ``out_nc`` channels with a bias (``model.{11+n}``),
+    tanh; 1/4 of the input size. Convs before a BatchNorm have no bias."""
+
+    def __init__(self, input_nc: int = 3, ngf: int = 64, n_blocks: int = 3,
+                 out_nc: int = 128):
+        super().__init__()
+        layers = [nn.ReflectionPad2d(3), Conv2d(input_nc, ngf, 7, bias=False),
+                  BatchNorm(ngf), nn.ReLU()]
+        for i in range(2):
+            c = ngf * 2 ** i
+            layers += [Conv2d(c, 2 * c, 3, 2, 1, bias=False), BatchNorm(2 * c),
+                       nn.ReLU()]
+        layers += [ResnetBlock(4 * ngf, norm="batch") for _ in range(n_blocks)]
+        layers += [nn.ReflectionPad2d(3), Conv2d(4 * ngf, out_nc, 7),
+                   nn.Tanh()]
+        self.model = nn.Sequential(*layers)
+        self.n_blocks = n_blocks
+
+    def forward(self, x):
+        return self.model(x)
+
+    def jax_sites(self):
+        m = self.model
+        sites = {"stem_conv": m[1], "stem_norm": m[2], "down0_conv": m[4],
+                 "down0_norm": m[5], "down1_conv": m[7], "down1_norm": m[8],
+                 "head": m[11 + self.n_blocks]}
+        for i in range(self.n_blocks):
+            c = m[10 + i].conv_block
+            sites.update({f"block{i}_conv0": c[1], f"block{i}_norm0": c[2],
+                          f"block{i}_conv1": c[5], f"block{i}_norm1": c[6]})
+        return sites
+
+
+class _SkipDecoderAlt(_ReferenceNet):
+    """The SEG/DEP body of S2D_alt (my_seg_depth/networks.py:289-351):
+    1×1 adapters ``trans.{i}`` (to 256, 256, 128) over FeatureNet's three
+    features, deepest first, each concatenated onto the running map before
+    a ConvTranspose k2 s2 ``Up.{i}`` (to 512, 256, 256), then ``Up.3`` to
+    ``out_c`` at full resolution. JAX names: ``dec.trans_{i}``,
+    ``dec.up_{i}``."""
+
+    TRANS = (256, 256, 128)
+    UP = (512, 256, 256)
+
+    def __init__(self, out_c: int, mid_nc: int = 1024,
+                 feature_nc: Sequence[int] = (416, 592, 680)):
+        super().__init__()
+        self.trans = nn.ModuleList(
+            Conv2d(feature_nc[2 - i], c, 1) for i, c in enumerate(self.TRANS))
+        ins = (mid_nc, *self.UP[:2])
+        self.Up = nn.ModuleList(
+            [ConvTranspose2d(a + t, b, 2, 2)
+             for a, t, b in zip(ins, self.TRANS, self.UP)]
+            + [ConvTranspose2d(self.UP[-1], out_c, 2, 2)])
+
+    def decode(self, features, x):
+        h = x
+        for i in range(3):
+            h = self.Up[i](torch.cat([h, self.trans[i](features[2 - i])], 1))
+        return self.Up[3](h)
+
+    def jax_sites(self):
+        return {**{f"dec.trans_{i}": t for i, t in enumerate(self.trans)},
+                **{f"dec.up_{i}": u for i, u in enumerate(self.Up)}}
+
+
+class SEGAlt(_SkipDecoderAlt):
+    """SEG of S2D_alt (networks.py:289-319): the skip decoder to ``n_cls``
+    channels, tanh — the reference trains its CE on these."""
+
+    def __init__(self, n_cls: int = 28, mid_nc: int = 1024,
+                 feature_nc: Sequence[int] = (416, 592, 680)):
+        super().__init__(n_cls, mid_nc, feature_nc)
+
+    def forward(self, features, x):
+        return torch.tanh(self.decode(features, x))
+
+
+class DEPAlt(_SkipDecoderAlt):
+    """DEP of S2D_alt (networks.py:321-351): the skip decoder to one
+    channel, LeakyReLU(0.01)."""
+
+    def __init__(self, mid_nc: int = 1024,
+                 feature_nc: Sequence[int] = (416, 592, 680)):
+        super().__init__(1, mid_nc, feature_nc)
+
+    def forward(self, features, x):
+        return F.leaky_relu(self.decode(features, x), 0.01)
+
+
+def s2d_base_nets(cfg) -> Dict[str, nn.Module]:
+    """The five S2D_base nets at ``cfg``'s widths (``g1_blocks``,
+    ``dense_block_config``, ``ndf``, ``d_repeat_num``, ``dis_seg``; the
+    trunk's growth and head stay the reference's 32 and 1024, as in the JAX
+    model), uninitialised. The discriminator takes G_1's 64 channels."""
+    g2 = GeneralNet2(block_config=tuple(cfg.dense_block_config
+                                        or (6, 12, 32, 32)))
+    return {"G_1": G1(n_blocks=cfg.g1_blocks, block_type="resnet"),
+            "G_2": g2,
+            "Dis_en": DropDiscriminator(64, cfg.ndf, cfg.d_repeat_num,
+                                        cfg.dis_seg),
+            "Seg_de": SEG2(28, feature_nc=g2.feature_channels),
+            "Dep_de": DEP2(feature_nc=g2.feature_channels)}
+
+
+def s2d_alt_nets(cfg) -> Dict[str, nn.Module]:
+    """The six S2D_alt nets (fixed widths; ``net_g`` '3blocks' or
+    '6blocks' sets the encoders' residual blocks, anything else 3, as in
+    the JAX model), uninitialised."""
+    n_blocks = {"3blocks": 3, "6blocks": 6}.get(cfg.net_g, 3)
+    feature = FeatureNet(128)
+    return {"G_1": GBase(n_blocks=n_blocks), "G_2": GBase(n_blocks=n_blocks),
+            "Dis_en": DropDiscriminator(128, 128),
+            "Feature": feature,
+            "Seg_de": SEGAlt(28, feature_nc=feature.feature_channels),
+            "Dep_de": DEPAlt(feature_nc=feature.feature_channels)}
+
+
+def _init_nets(nets, kaiming_nets, generator):
+    """Kaiming convs in ``kaiming_nets`` (their ``ResnetBlock``s N(0,
+    0.02²), as the JAX ``ResnetBlock``'s default), N(0, 0.02²) elsewhere;
+    zero biases."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    for name, net in nets.items():
+        if name in kaiming_nets:
+            init_weights(net, "kaiming", 0.0, generator)
+            for m in net.modules():
+                if isinstance(m, ResnetBlock):
+                    init_weights(m, "normal", 0.02, generator)
+        else:
+            init_weights(net, "normal", 0.02, generator)
+    return nets
+
+
+def define_s2d_base_nets(cfg, generator: torch.Generator = None
+                         ) -> Dict[str, nn.Module]:
+    """``s2d_base_nets`` initialised as the JAX nets are: G_1 and G_2
+    kaiming, the rest N(0, 0.02²)."""
+    return _init_nets(s2d_base_nets(cfg), ("G_1", "G_2"), generator)
+
+
+def define_s2d_alt_nets(cfg, generator: torch.Generator = None
+                        ) -> Dict[str, nn.Module]:
+    """``s2d_alt_nets`` initialised as the JAX nets are: Feature kaiming,
+    the rest N(0, 0.02²)."""
+    return _init_nets(s2d_alt_nets(cfg), ("Feature",), generator)
 
 
 def s2d_nets(cfg) -> Dict[str, nn.Module]:

@@ -19,6 +19,11 @@ reference train.py:10-81)::
         --lab_source_file_train … --lab_target_file_train … \
         --depth_source_file_train … [--dense_block_config 6 12 32 32 \
         --dense_growth_rate 32 --s2d_mid_nc 1024 --g1_blocks 3]
+    python -m cycle_depth_estimation_tpu_torch.train --model S2D_base …
+        (the same files) [--dense_block_config 6 12 32 32 --g1_blocks 3 \
+        --ndf 64 --d_repeat_num 4 --dis_seg]
+    python -m cycle_depth_estimation_tpu_torch.train --model S2D_alt …
+        (the same files) [--netG 3blocks|6blocks --lr_D 8e-5]
     python -m cycle_depth_estimation_tpu_torch.train --model rf_lw …
         (or rf_lw7; the same files) [--resnet_layers 3 4 23 3] \
         [--syn_domain syn] [--kitti_gt_dir <dir> --eval_freq N \
@@ -26,7 +31,8 @@ reference train.py:10-81)::
 
 ``seg_cycle`` and ``seg`` read the ``synthia`` dataset (their default):
 SYNTHIA images, labels and depth against Cityscapes images and labels,
-192×640 at the default ``fine_size``. ``S2D``, ``rf_lw`` and ``rf_lw7`` read
+192×640 at the default ``fine_size``. ``S2D``, ``S2D_base``, ``S2D_alt``,
+``rf_lw`` and ``rf_lw7`` read
 ``try``: vKITTI images, labels and 16-bit depth against KITTI images and
 labels, 192×576, batch 1. With ``--kitti_gt_dir``, every ``eval_freq``
 images the test split's refined depths go to ``<run>/pred/`` (the

@@ -24,6 +24,12 @@ takes instance norm only; the port's converter takes BatchNorm too):
 
 ``s2d_state_dicts_from_jax`` is the inverse of ``import_g1``,
 ``import_general_net``, ``import_rdep`` and ``import_sdiscriminator``;
+``s2d_base_state_dicts_from_jax`` of ``import_g1_base``,
+``import_general_net2``, ``import_seg2``, ``import_dep2`` and
+``import_drop_discriminator``; ``s2d_alt_state_dicts_from_jax`` of
+``import_gbase``, ``import_drop_discriminator``, ``import_feature_net`` and
+``import_skip_decoder_alt`` (``PSPModule`` has no importer: it is held
+against the JAX module's outputs);
 ``rf_lw_state_dicts_from_jax`` of ``import_resnetlw`` and ``import_segd``
 (rf_lw7's ``depth`` block has no importer: it is held against the JAX
 module's outputs).
@@ -49,7 +55,7 @@ from ..models.networks import (_RESNET_BLOCKS, _UNET_DOWNS,
                                NLayerDiscriminator, PixelDiscriminator,
                                ResnetGenerator, UnetGenerator)
 from ..models.refinenet import rf_lw_nets
-from ..models.s2d_networks import s2d_nets
+from ..models.s2d_networks import s2d_alt_nets, s2d_base_nets, s2d_nets
 from ..models.seg_network import UNetGenerator
 from ..ops.layers import PReLU
 
@@ -311,16 +317,37 @@ def seg_state_dicts_from_jax(params: Mapping[str, Any],
              "batch_stats": batch_stats.get("img2task")}, norm=cfg.norm)}
 
 
+def _nets_state_dicts_from_jax(build, variables, cfg):
+    with torch.device("meta"):
+        shells = build(cfg)
+    return {k: _state_dict_from_jax(shells[k], *_variables(v))
+            for k, v in variables.items()}
+
+
 def s2d_state_dicts_from_jax(variables: Mapping[str, Any], cfg
                              ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
     """The JAX S2D nets' variables, ``{net: {"params", "batch_stats"}}`` for
     any of ``G_1``, ``G_2``, ``R_D`` and ``FD1``–``FD3`` (numpy leaves) →
     the port's state dicts of those nets (reference names), at ``cfg``'s
     widths."""
-    with torch.device("meta"):
-        shells = s2d_nets(cfg)
-    return {k: _state_dict_from_jax(shells[k], *_variables(v))
-            for k, v in variables.items()}
+    return _nets_state_dicts_from_jax(s2d_nets, variables, cfg)
+
+
+def s2d_base_state_dicts_from_jax(variables: Mapping[str, Any], cfg
+                                  ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """The JAX S2D_base nets' variables (any of ``G_1``, ``G_2``,
+    ``Dis_en``, ``Seg_de``, ``Dep_de``; numpy leaves) → the port's state
+    dicts, at ``cfg``'s ``g1_blocks``, ``dense_block_config`` and
+    ``d_repeat_num``."""
+    return _nets_state_dicts_from_jax(s2d_base_nets, variables, cfg)
+
+
+def s2d_alt_state_dicts_from_jax(variables: Mapping[str, Any], cfg
+                                 ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """The JAX S2D_alt nets' variables (any of ``G_1``, ``G_2``, ``Dis_en``,
+    ``Feature``, ``Seg_de``, ``Dep_de``; numpy leaves) → the port's state
+    dicts, at ``cfg``'s ``net_g``."""
+    return _nets_state_dicts_from_jax(s2d_alt_nets, variables, cfg)
 
 
 def rf_lw_state_dicts_from_jax(variables: Mapping[str, Any], cfg
@@ -330,10 +357,7 @@ def rf_lw_state_dicts_from_jax(variables: Mapping[str, Any], cfg
     seg8, seg4, seg2, seg2_0; rf_lw7: G, seg2_0, depth; numpy leaves) → the
     port's state dicts of those nets, at ``cfg.resnet_layers``. Both adapter
     sets of G must be in its params (the JAX ``init`` makes both)."""
-    with torch.device("meta"):
-        shells = rf_lw_nets(cfg)
-    return {k: _state_dict_from_jax(shells[k], *_variables(v))
-            for k, v in variables.items()}
+    return _nets_state_dicts_from_jax(rf_lw_nets, variables, cfg)
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:

@@ -181,3 +181,85 @@ def test_reference_flag_aliases():
             cfg.niter) == (3.0, 4.0, "pixel", 5, 2)
     assert cfg.no_dropout  # cycle_gan's model default
     assert parse_args(["--model", "cycle_gan", "--no_dropout"]).no_dropout
+
+
+@pytest.mark.parametrize("model,nets", [
+    ("S2D_base", {"G_1": "G1", "G_2": "GeneralNet2",
+                  "Dis_en": "DropDiscriminator", "Seg_de": "SEG2",
+                  "Dep_de": "DEP2"}),
+    ("S2D_alt", {"G_1": "GBase", "G_2": "GBase", "Dis_en": "DropDiscriminator",
+                 "Feature": "FeatureNet", "Seg_de": "SEGAlt",
+                 "Dep_de": "DEPAlt"})])
+def test_s2d_base_generation_models_build_their_nets(model, nets):
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    cfg = parse_args(["--model", model, "--device", "cpu",
+                      "--dense_block_config", "1", "1", "1", "1",
+                      "--g1_blocks", "1", "--ndf", "8"])
+    assert (cfg.dataset_mode, cfg.batch_size, cfg.fine_size) == ("try", 1, 192)
+    m = create_model(cfg)
+    state = m.init_state()
+    assert tuple(state.nets) == m.model_names == tuple(nets)
+    assert {k: type(v).__name__ for k, v in state.nets.items()} == nets
+    lrs = {k: o.param_groups[0]["lr"] for k, o in state.optimizers.items()}
+    assert lrs == {k: (8e-5 if (k, model) == ("Dis_en", "S2D_alt") else 2e-4)
+                   for k in nets}
+    assert all(o.param_groups[0]["eps"] == 1e-8
+               for o in state.optimizers.values())
+    if model == "S2D_base":
+        assert state.nets["G_1"].block_type == "resnet"
+        assert state.nets["Dis_en"].main[0].in_channels == 64
+
+
+def test_s2d_base_generation_flags_parse():
+    cfg = parse_args(["--model", "S2D_base", "--lr_D", "1e-4", "--dis_seg",
+                      "--d_repeat_num", "3"])
+    assert (cfg.lr_d, cfg.dis_seg, cfg.d_repeat_num) == (1e-4, True, 3)
+    cfg = parse_args(["--model", "S2D_alt", "--lr_d", "3e-5"])
+    assert (cfg.lr_d, cfg.dis_seg, cfg.d_repeat_num, cfg.net_g) == (
+        3e-5, False, 4, "3blocks")
+    assert parse_args(["--model", "S2D_alt", "--netG", "6blocks"]).net_g == \
+        "6blocks"
+
+
+@pytest.mark.parametrize("model", ["S2D_base", "S2D_alt"])
+def test_s2d_base_generation_train_cli_trains_and_resumes(model, tmp_path):
+    """Two steps on tiny ``try`` files at 64×192, a save, then a resume
+    with ``--continue_train`` for one more step; the nets load back."""
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.utils.weights import load_pth
+    from tests.test_torch_port_try_data import write_try_files
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        lists = write_try_files(str(tmp_path / "data"), n=2)
+        args = ["--model", model, "--device", "cpu", "--fine_size", "64",
+                "--dense_block_config", "1", "1", "1", "1", "--g1_blocks",
+                "1", "--ndf", "8", "--checkpoints_dir", str(tmp_path / "ck"),
+                "--name", "run", "--niter", "1", "--niter_decay", "0",
+                "--save_epoch_freq", "1", "--print_freq", "1",
+                "--display_freq", "2", "--num_threads", "0"]
+        for kind, path in lists.items():
+            args += [f"--{kind}_file_train", path]
+        state = train_main(args)
+        assert state.step == 2
+        expr = tmp_path / "ck" / "run"
+        log = (expr / "loss_log.txt").read_text()
+        assert "acc_real" in log and "dep_syn" in log
+        assert (expr / "web" / "images" / "epoch001_syn_dep_pre.png").is_file()
+        state = train_main(args + ["--continue_train", "--epoch_count", "2",
+                                   "--niter", "2", "--max_dataset_size", "1"])
+        assert state.step == 3
+        cfg = parse_args(args)
+        m = create_model(cfg)
+        loaded = m.load_networks(m.init_state(), 2)
+        assert loaded.step == 3
+        for name in m.model_names:
+            sd = load_pth(os.path.join(expr, f"2_net_{name}.pth"))
+            for key, t in state.nets[name].state_dict().items():
+                torch.testing.assert_close(t, sd[key], rtol=0, atol=0)
+                torch.testing.assert_close(
+                    loaded.nets[name].state_dict()[key], t, rtol=0, atol=0)
+    finally:
+        torch.set_num_threads(n)
