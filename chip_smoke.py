@@ -115,8 +115,8 @@ Launch counts are zeroed just before phase 3 and read after phase 7 (the
 serving path), before phase 8 and after phase 9 (the training path),
 before phase 10 and after phase 12 (the pix2pix path), and before and
 after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net),
-17 and 19 (S2D and the base generation, where they must stay 0) and 18b
-(rf_lw).
+17, 19 and 20 (S2D and the base and two-trunk generations, where they
+must stay 0) and 18b (rf_lw).
 18. RefineNet-LW (``--model rf_lw``) at the JAX package's full width
    (ResNetLW-101, four segd heads, 28 + 1 classes), 192×576. 18a (run
    right after phase 1b, with the other kernel checks): both InstanceNorm
@@ -149,6 +149,23 @@ after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net),
    vKITTI-sized PNGs, two steps, each in a session of its own; the nets
    load back. Neither model has an InstanceNorm: the kernel counts must not
    move in phase 19.
+20. The two-trunk generation, ``--model S2D_df``, ``--model S2D_nd`` and
+   ``--model S2D_nd --nd_4dis``, at the JAX package's full width (two
+   DenseNet-169 GeneralNet2 trunks; S2D_df: SEGDF, DEPDF and the 512-channel
+   Dis2SegDF; S2D_nd: SEG, DEP and the 1024-channel DiscriminatorSeg with
+   the WGAN-GP penalty and SGD, or the two 256-channel twin critics),
+   192×576, fp32 with TF32 off, by phase 19's steps: 20a card against CPU
+   with the same penalty alphas (drawn on the CPU from the seed and the
+   step); S2D_nd's critic is piecewise linear and its BCE ill-conditioned
+   near its clamp, so the phases that differentiate it (D1, G_2, D2) and
+   its whole step, at two seeds, are held with the BCE's slope and the D
+   phases' critic inputs taken from the CPU (``CriticPins``), the trunks'
+   features and the critic's outputs held apart, and reported unpinned
+   beside the card's float64 phase and step; 20b bf16 against fp32, each
+   loss as the step first computes it and as it ends (S2D_nd's second D
+   phase from the fp32 step's input to it); 20c timed and profiled; 20d
+   the three train CLIs, two steps each and a resume for a third. No
+   InstanceNorm or epilogue launch may happen in phase 20.
 
 The last three lines
 are a JSON object with every kernel's numbers, the card's name and power
@@ -2879,12 +2896,17 @@ def phase_rf_lw(cli):
     return out
 
 
-# The base my_seg_depth generation (S2D_base, S2D_alt) at the try size: the
-# nets each phase of a step updates, and how many Dis_en forwards draw
-# dropout masks in a step
+# The base my_seg_depth generation (S2D_base, S2D_alt; phase 19) and the
+# two-trunk one (S2D_df, S2D_nd and S2D_nd --nd_4dis; phase 20) at the try
+# size: the nets each phase of a step updates, and how many Dis_en forwards
+# draw dropout masks in a step
 BASE_MODELS = ("S2D_base", "S2D_alt")
+TWO_TRUNK = ("S2D_df", "S2D_nd", "S2D_nd_4dis")
+BASE_TAG = {**dict.fromkeys(BASE_MODELS, "19"), **dict.fromkeys(TWO_TRUNK,
+                                                                 "20")}
+BASE_CASES = {"S2D_nd_4dis": {"model": "S2D_nd", "nd_4dis": True}}
 BASE_H, BASE_W = S2D_H, S2D_W
-BASE_WIDTHS = {"S2D_base": {}, "S2D_alt": {}}  # overrides; empty: full width
+BASE_WIDTHS = {k: {} for k in BASE_TAG}  # overrides; empty: full width
 BASE_BATCHES = (1, 8)
 BASE_FALLBACK_BATCHES = (4, 2)  # timed in turn where batch 8 does not fit
 BASE_BF16_BATCH = 2
@@ -2893,18 +2915,58 @@ BASE_UPDATES = {
     "S2D_base": {"real": (), "G": ("G_1", "G_2"), "frozen": (),
                  "Seg": ("Seg_de",), "Dep": ("Dep_de",), "D": ("Dis_en",)},
     "S2D_alt": {"G": ("G_1", "G_2"), "Feature": ("Feature",),
-                "Seg": ("Seg_de",), "Dep": ("Dep_de",), "D": ("Dis_en",)}}
+                "Seg": ("Seg_de",), "Dep": ("Dep_de",), "D": ("Dis_en",)},
+    "S2D_df": {"G_1": ("G_1",), "G_2": ("G_2",), "Seg": ("Seg_de",),
+               "Dep": ("Dep_de",), "D": ("Dis0_en",)},
+    "S2D_nd": {"D1": ("Dis_en",), "G_1": ("G_1",), "G_2": ("G_2",),
+               "Seg": ("Seg_de",), "Dep": ("Dep_de",), "D2": ("Dis_en",)},
+    "S2D_nd_4dis": {"D1": ("Dis0_en", "Dis1_en"), "G_1": ("G_1",),
+                    "G_2": ("G_2",), "Seg": ("Seg_de",), "Dep": ("Dep_de",),
+                    "D2": ("Dis0_en", "Dis1_en")}}
 BASE_DRAWS = {"S2D_base": 3, "S2D_alt": 4}
 BASE_CHECK_EPS = 1e-3  # 19a's Adam eps on both sides (the models' is 1e-8)
+# S2D_nd's critic (model2's DiscriminatorSeg) is piecewise linear (a
+# LeakyReLU after each 1×1 conv and after the head), and its BCE clamps the
+# outputs to [1e-7, 1 − 1e-7] with the slope −1/p toward 1: the update of a
+# phase that differentiates that BCE jumps where rounding puts one of the
+# critic's pre-activations on the other side of 0 or an output on the other
+# side of the clamp, and an output near the clamp carries its rounding into
+# the gradient at 1/p times its size. The card's fp32 trunk features lie
+# far enough from the CPU's to do both. 20a holds such a phase in parts
+# (``CriticPins``): the trunks' features and the critic's outputs within
+# ``PIN_OUT_REL`` of the largest, the losses within 1e-3, and the update by
+# the plain checks with the BCE's slope, and the features a D phase feeds
+# its critic (``BASE_FED``), taken from the CPU. Unpinned, the update is
+# reported with the sign and clamp flips and the CPU's and the card's
+# distances from the card's float64 phase. The whole step is held pinned
+# (slopes only) on its losses.
+BASE_PINNED = {"S2D_nd": ("D1", "G_2", "D2")}
+BASE_FED = {"S2D_nd": ("D1", "D2")}
+TRUNKS = ("G_1", "G_2")
+PIN_OUT_REL = 1e-4  # the critic's outputs, card vs CPU, of the largest
+# The unpinned whole step's losses that read the first D phase's update
+# (S2D_nd's G_2 phase and its second D phase): 20a reports them beside the
+# CPU's and the card's distances from the card's float64 step, at each of
+# ``BASE_SEEDS`` (the pinned step holds them); 20b holds the second D
+# phase from the fp32 step's input to it and reports its losses' end
+# values (G_2's losses are computed once and held).
+BASE_REPORTED = {"S2D_nd": ("G_2", "G2_dis", "D_syn", "D_real", "gp")}
+BASE_SEEDS = {"S2D_nd": (0, 1)}  # 20a's whole step: model seed (batch: 17+)
 
 
-def base_config(model, **kw):
+def base_case(name):
+    """The config fields of case ``name`` (a model, or a model and flags)
+    with its width overrides."""
+    return {**BASE_CASES.get(name, {"model": name}), **BASE_WIDTHS[name]}
+
+
+def base_config(name, **kw):
     from cycle_depth_estimation_tpu_torch.config import (Config,
                                                          apply_model_defaults)
 
-    over = {**BASE_WIDTHS[model], **kw}
-    return apply_model_defaults(
-        Config(**{"model": model, "device": "cuda", **over}), set(over))
+    over = {**base_case(name), **kw}
+    return apply_model_defaults(Config(**{"device": "cuda", **over}),
+                                set(over))
 
 
 class MaskFeed:
@@ -2922,108 +2984,408 @@ class MaskFeed:
         return MaskFeed(self.masks, i, device)
 
 
+class CriticPins:
+    """S2D_nd's BCE (``s2d_nd.bce_gan_loss``), the trunks' features a D
+    phase feeds its critic and the signs of the critic's LeakyReLU inputs,
+    recorded and replayed. ``record(key, trunks, critic)``: under ``key``
+    (a phase), each BCE call keeps the critic's output (on the CPU) and the
+    BCE's gradient in it, each forward of a net of ``trunks`` its features
+    and each LeakyReLU module of ``critic`` the signs of its input.
+    ``replay(keys, trunks, critic, pin)``: the same calls in turn; with
+    ``pin``, each BCE call's gradient in the critic's output is the
+    recorded one (its value the replaying side's own) and each forward of
+    a net of ``trunks`` gives the recorded features. ``seen`` then holds
+    the largest distance of the critic's outputs from the recorded ones,
+    relative to the largest, of the trunks' own features likewise, and
+    how many outputs the BCE's clamp and how many pre-activations the
+    LeakyReLUs take on the other side."""
+
+    def __init__(self):
+        self.calls, self.seen = {}, {}
+
+    @contextmanager
+    def _installed(self, fn, hooks):
+        from cycle_depth_estimation_tpu_torch.models import s2d_nd
+
+        bce = s2d_nd.bce_gan_loss
+        s2d_nd.bce_gan_loss = lambda pred, real: fn(bce, pred, real)
+        handles = [m.register_forward_hook(h) for m, h in hooks]
+        try:
+            yield
+        finally:
+            s2d_nd.bce_gan_loss = bce
+            for h in handles:
+                h.remove()
+
+    @staticmethod
+    def _relus(critic):
+        import torch
+
+        return [m for m in critic.modules()
+                if isinstance(m, torch.nn.LeakyReLU)]
+
+    def record(self, key, trunks=(), critic=None):
+        import torch
+
+        rec = self.calls.setdefault(key, {"bce": [], "feats": [],
+                                          "signs": []})
+
+        def fn(bce, pred, real):
+            ref = pred.detach().float().cpu().requires_grad_(True)
+            (g,) = torch.autograd.grad(bce(ref, real), ref)
+            rec["bce"].append((ref.detach(), real, g))
+            return bce(pred, real)
+
+        hooks = [(t, lambda m, a, out: rec["feats"].append(
+            out[1].detach().float().cpu())) for t in trunks]
+        hooks += [(r, lambda m, a, out: rec["signs"].append(
+            (a[0] > 0).cpu())) for r in (self._relus(critic) if critic
+                                         else ())]
+        return self._installed(fn, hooks)
+
+    @contextmanager
+    def replay(self, keys, trunks=(), critic=None, pin=True):
+        bce_feed = [c for k in keys for c in self.calls[k]["bce"]]
+        feats = [f for k in keys for f in self.calls[k]["feats"]
+                 ] if trunks else []
+        signs = [s for k in keys for s in self.calls[k]["signs"]
+                 ] if critic is not None else []
+        seen = self.seen = {"outputs": 0.0, "feats": None, "clamp": 0,
+                            "relu": None if critic is None else 0}
+
+        def fn(bce, pred, real):
+            ref, want, g = bce_feed.pop(0)
+            if want != real or ref.shape != pred.shape:
+                raise AssertionError(f"BCE call: {tuple(pred.shape)}, {real}")
+            seen["outputs"] = max(seen["outputs"], out_distance(pred, ref))
+            seen["clamp"] += int(clamped(pred.detach().float().cpu()).ne(
+                clamped(ref)).sum())
+            if not pin:
+                return bce(pred, real)
+            return (bce(pred.detach(), real)
+                    + (g.to(pred.device) * (pred - pred.detach())).sum())
+
+        def feed(m, a, out):
+            ref = feats.pop(0)
+            seen["feats"] = max(seen["feats"] or 0.0, out_distance(out[1],
+                                                                   ref))
+            return (out[0], ref.to(out[1].device, out[1].dtype)) if pin \
+                else None
+
+        def sign(m, a, out):
+            seen["relu"] += int((a[0] > 0).cpu().ne(signs.pop(0)).sum())
+
+        hooks = [(t, feed) for t in trunks]
+        hooks += [(r, sign) for r in (self._relus(critic) if critic
+                                      else ())]
+        with self._installed(fn, hooks):
+            yield
+        if bce_feed or feats or signs:
+            raise AssertionError(f"{len(bce_feed)} recorded BCE calls, "
+                                 f"{len(feats)} features and {len(signs)} "
+                                 "sign maps left")
+
+
+def clamped(p):
+    """Where the BCE's clamp stops an output."""
+    return (p < 1e-7) | (p > 1.0 - 1e-7)
+
+
+def out_distance(pred, ref):
+    """The largest distance of ``pred`` from ``ref`` over ``ref``'s largest
+    magnitude."""
+    return float((pred.detach().double().cpu() - ref.double()).abs().max()
+                 / ref.abs().max())
+
+
+def pins_said(seen):
+    """What a ``CriticPins`` replay saw, in words."""
+    return (f"the critic's outputs {seen['outputs']:.1e} of the largest "
+            f"from the CPU's, {seen['clamp']} on the other side of the "
+            "clamp" + ("" if seen["relu"] is None else
+                       f", {seen['relu']} of its LeakyReLUs' inputs on the "
+                       "other side of 0") + (
+                "" if seen["feats"] is None else
+                f", the trunks' own features {seen['feats']:.1e}"))
+
+
 def base_snapshot(state, ctx):
     """``s2d_snapshot`` on the CPU with the mask feed left out, and the
-    feed's position."""
+    feed's position (None without one)."""
+    feed = ctx.get("masks")
     return (*s2d_snapshot(state, {k: v for k, v in ctx.items()
-                                  if k != "masks"}), ctx["masks"].i)
+                                  if k != "masks"}),
+            None if feed is None else feed.i)
 
 
 def with_eps(state, eps):
+    """Adam's eps set to ``eps``; an optimizer without one (SGD) as it
+    is."""
     for opt in state.optimizers.values():
         for group in opt.param_groups:
-            group["eps"] = eps
+            if "eps" in group:
+                group["eps"] = eps
     return state
 
 
-def phase_base_card_vs_cpu(name):
-    """Phase 19a for ``name``: the first batch-1 step on the card and on the
-    CPU (oneDNN off) from one seed, with the same Dis_en masks (drawn on
-    the CPU from the seed and the step) and Adam's eps raised to 1e-3 on
-    both sides, as phase 17b does (at the models' 1e-8 the first update is
-    lr·sign(g), and rounding-sized gradients flip: 0.42 % of G_2's in the G
-    phase of S2D_base alone): the whole step's losses within 1e-3 relative;
-    then each phase again on the card from the CPU's state, carried tensors
-    and masks before it: its losses within 1e-3 and the nets it updates by
-    the three checks. Over the whole step the parameter distances and
-    sign-flipped first updates are reported, not held: a later phase reads
-    an earlier one's updated weights."""
+def as_float64(ctx):
+    """A step context with its floating tensors in float64."""
+    import torch
+
+    return {k: v.double() if torch.is_tensor(v) and v.is_floating_point()
+            else v for k, v in ctx.items()}
+
+
+def float64_phase(model, state64, nets, opts, pre, phase):
+    """``phase`` in float64 on the card from a snapshot (``nets``,
+    ``opts``, carried ``pre``): ``state64`` is ``float64_step``'s. Returns
+    the parameters after it on the CPU."""
+    for k, net in state64.nets.items():
+        net.load_state_dict(nets[k])
+        state64.optimizers[k].load_state_dict(opts[k])
+    phase(model, state64, as_float64(copied(pre, "cuda")))
+    return s2d_params(state64)
+
+
+def float64_step(model, batch, pins=None):
+    """The model's first step in float64 on the card from its seed (CE and
+    L1 stay fp32 reductions), Adam's eps at ``BASE_CHECK_EPS``, its BCE
+    calls recorded in ``pins`` (a ``CriticPins``) under "step": (its
+    losses, the float64 state)."""
+    state = model.init_state()
+    for net in state.nets.values():
+        net.double().train()
+    state.optimizers = {k: model._optimizer(k, state.nets[k].parameters())
+                        for k in model.model_names}
+    with_eps(state, BASE_CHECK_EPS)
+    ctx = as_float64(model._ctx(state, on(batch, "cuda")))
+    with (pins.record("step") if pins else contextlib.nullcontext()):
+        for _, phase in model.PHASES:
+            phase(model, state, ctx)
+    return {k: float(ctx["metrics"][k]) for k in model.loss_names}, state
+
+
+def base_params_close(got, want, before, lr, sgd):
+    """One net's parameters after a phase, ``got`` against ``want``: an
+    Adam net by the three checks of ``s2d_params_close``, the SGD critic
+    within 1e-3 of ``want``'s largest update from ``before``. Returns (ok,
+    numbers)."""
+    if not sgd:
+        return s2d_params_close(got, want, lr)
+    upd = max(float((want[k].double() - before[k].double()).abs().max())
+              for k in want)
+    err = max(float((got[k].double() - want[k].double()).abs().max())
+              for k in want)
+    return err <= 1e-3 * upd, {"max_over_update": err / upd}
+
+
+def base_first_step(name, seed=0):
+    """20a's whole first step of ``name`` at model seed ``seed`` and batch
+    seed 17 + ``seed``, batch 1, Adam's eps at ``BASE_CHECK_EPS``, on the
+    CPU (oneDNN off, each phase snapshotted before it runs and, for a
+    ``BASE_PINNED`` model, its BCE calls recorded) and on the card; for a
+    pinned model also in float64 and pinned on the card. Losses within 1e-3
+    relative but ``BASE_REPORTED``'s unpinned ones; the parameters
+    reported. Returns what the phase checks read, and the failures."""
     import torch
 
     from cycle_depth_estimation_tpu_torch.models import create_model
 
-    batch = s2d_batch(1, seed=17, size=(BASE_H, BASE_W))
+    tag = f"phase {BASE_TAG[name]}a {name}" + (f" seed {seed}" if seed
+                                               else "")
+    pins = CriticPins() if name in BASE_PINNED else None
+    batch = s2d_batch(1, seed=17 + seed, size=(BASE_H, BASE_W))
     t = time.perf_counter()
     with torch.backends.mkldnn.flags(enabled=False):
-        cpu_model = create_model(base_config(name, device="cpu"))
+        cpu_model = create_model(base_config(name, device="cpu", seed=seed))
         cpu_state = with_eps(cpu_model.init_state(), BASE_CHECK_EPS)
         p0 = s2d_params(cpu_state)
         ctx = cpu_model._ctx(cpu_state, batch)
-        draw = ctx["masks"]
-        feed = MaskFeed([draw() for _ in range(BASE_DRAWS[name])])
-        ctx["masks"] = feed
+        feed = None
+        if "masks" in ctx:
+            draw = ctx["masks"]
+            feed = MaskFeed([draw() for _ in range(BASE_DRAWS[name])])
+            ctx["masks"] = feed
         for net in cpu_state.nets.values():
             net.train()
         snaps = []
-        for _, phase in cpu_model.PHASES:
+        for pname, phase in cpu_model.PHASES:
             snaps.append(base_snapshot(cpu_state, ctx))
-            phase(cpu_model, cpu_state, ctx)
+            with (pins.record(pname, [cpu_state.nets[k] for k in TRUNKS],
+                              cpu_state.nets["Dis_en"])
+                  if pins else contextlib.nullcontext()):
+                phase(cpu_model, cpu_state, ctx)
         snaps.append(base_snapshot(cpu_state, ctx))
-    if feed.i != BASE_DRAWS[name]:
+    if feed is not None and feed.i != BASE_DRAWS[name]:
         raise AssertionError(f"{name}: {feed.i} Dis_en forwards drew masks")
     m_cpu = {k: float(v) for k, v in ctx["metrics"].items()}
     cpu_after = s2d_params(cpu_state)
     del cpu_model, cpu_state, ctx
     cpu_s = time.perf_counter() - t
-    model = create_model(base_config(name))
+    model = create_model(base_config(name, seed=seed))
     state = with_eps(model.init_state(), BASE_CHECK_EPS)
-    state, m = model.train_step(state, on(batch, "cuda"))
+    card_pins = CriticPins()
+    with (card_pins.record("step") if pins else contextlib.nullcontext()):
+        state, m = model.train_step(state, on(batch, "cuda"))
     m_card = {k: float(v) for k, v in m.items()}
     card_after = s2d_params(state)
-    rel = rel_loss_diffs(m_card, m_cpu)
-    log(f"phase 19a {name}: adam_eps {BASE_CHECK_EPS:g}: whole step, card vs "
-        f"CPU ({cpu_s:.1f} s) first-step losses, relative: "
+    rel = rel_loss_diffs(m_card, {k: m_cpu[k] for k in m_card})
+    log(f"{tag}: adam_eps {BASE_CHECK_EPS:g}: whole step, card vs CPU "
+        f"({cpu_s:.1f} s) first-step losses, relative: "
         + " ".join(f"{k} {v:.1e}" for k, v in rel.items()))
     if not all(math.isfinite(v) for v in (*m_card.values(),
                                           *m_cpu.values())):
         raise AssertionError(f"{name} losses: card {m_card}, CPU {m_cpu}")
+    reported = BASE_REPORTED.get(name, ())
     bad = {k: v for k, v in rel.items()
-           if not k.startswith("acc") and v > S2D_CPU_LOSS_REL}
+           if not k.startswith("acc") and v > S2D_CPU_LOSS_REL
+           and k not in reported}
     lrs = {k: o.param_groups[0]["lr"] for k, o in state.optimizers.items()}
+    sgd = {k for k, o in state.optimizers.items()
+           if isinstance(o, torch.optim.SGD)}
+
+    def distances(after):
+        return {net: base_params_close(after[net], cpu_after[net], p0[net],
+                                       lrs[net], net in sgd)[1]
+                for net in model.model_names}
+
+    flips64 = state64 = None
+    if pins is not None:
+        pins64 = CriticPins()
+        m64, state64 = float64_step(model, batch, pins64)
+        flips64 = s2d_flip_shares(p0, card_after, s2d_params(state64),
+                                  model.model_names)
+        cpu_calls = [c for p, _ in model.PHASES for c in pins.calls[p]["bce"]]
+        for who, ms, calls in (("card fp32", m_card,
+                                card_pins.calls["step"]["bce"]),
+                               ("CPU fp32", m_cpu, cpu_calls)):
+            log(f"{tag}:   whole step, {who} vs card float64, relative: "
+                + " ".join(f"{k} {v:.1e}" for k, v in rel_loss_diffs(
+                    {k: ms[k] for k in m64}, m64).items())
+                + "; the critic's outputs, call by call, of the largest: "
+                + " ".join(f"{out_distance(c[0], c64[0]):.1e}" for c, c64 in
+                           zip(calls, pins64.calls["step"]["bce"])))
+        pinned = with_eps(model.init_state(), BASE_CHECK_EPS)
+        with pins.replay([p for p, _ in model.PHASES]):
+            pinned, pm = model.train_step(pinned, on(batch, "cuda"))
+        prel = rel_loss_diffs({k: float(v) for k, v in pm.items()},
+                              {k: m_cpu[k] for k in pm})
+        log(f"{tag}:   whole step pinned ({pins_said(pins.seen)}), card "
+            "vs CPU, relative: "
+            + " ".join(f"{k} {v:.1e}" for k, v in prel.items()))
+        bad.update({f"pinned:{k}": v for k, v in prel.items()
+                    if not k.startswith("acc") and v > S2D_CPU_LOSS_REL})
+        for net, nums in distances(s2d_params(pinned)).items():
+            log(f"{tag}:   whole step pinned {net}: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in nums.items()))
+        del pinned
     flips = s2d_flip_shares(p0, card_after, cpu_after, model.model_names)
     out = {}
-    for net in model.model_names:
-        nums = s2d_params_close(card_after[net], cpu_after[net], lrs[net])[1]
+    for net, nums in distances(card_after).items():
         out[net] = {**nums, "flips": flips[net]}
-        log(f"phase 19a {name}:   whole step {net}: " + ", ".join(
+        log(f"{tag}:   whole step {net}: " + ", ".join(
             f"{k} {v:.3g}" for k, v in nums.items())
-            + f"; sign-flipped updates {flips[net]:.2e}")
-    for i, (pname, phase) in enumerate(model.PHASES):
-        (nets, opts, pre, at), (nets_after, _, post, _) = (snaps[i],
-                                                          snaps[i + 1])
+            + f"; sign-flipped updates {flips[net]:.2e}" + (
+                "" if flips64 is None else
+                f" (card fp32 vs float64 {flips64[net]:.2e})"))
+    return dict(model=model, state=state, state64=state64, snaps=snaps,
+                feed=feed, pins=pins, lrs=lrs, out=out, bad=bad)
+
+
+def phase_base_card_vs_cpu(name):
+    """Phase 19a (20a) for ``name``: the first batch-1 step on the card and
+    on the CPU (oneDNN off) from one seed, with the same Dis_en masks and
+    penalty alphas (drawn on the CPU from the seed and the step) and
+    Adam's eps raised to 1e-3 on both sides, as phase 17b does (at the
+    models' 1e-8 the first update is lr·sign(g), and rounding-sized
+    gradients flip: 0.42 % of G_2's in the G phase of S2D_base alone): the
+    whole step's losses within 1e-3 relative (``base_first_step``, at each
+    of ``BASE_SEEDS``); then each phase again on the card from the CPU's
+    state, carried tensors and masks before it: its losses within 1e-3 and
+    the nets it updates by ``base_params_close``; a ``BASE_PINNED`` phase
+    pinned, as the comment there says. Over the whole step the parameter
+    distances and sign-flipped first updates are reported, not held: a
+    later phase reads an earlier one's updated weights."""
+    import torch
+
+    tag = f"phase {BASE_TAG[name]}a {name}"
+    first = base_first_step(name)
+    bad = first["bad"]
+    for seed in BASE_SEEDS.get(name, (0,))[1:]:
+        more = base_first_step(name, seed)
+        bad.update({f"seed {seed} {k}": v for k, v in more["bad"].items()})
+        del more
+        torch.cuda.empty_cache()
+    model, state, state64, snaps, feed, pins, lrs = (
+        first[k] for k in ("model", "state", "state64", "snaps", "feed",
+                           "pins", "lrs"))
+    sgd = {k for k, o in state.optimizers.items()
+           if isinstance(o, torch.optim.SGD)}
+
+    def on_card(phase, pname, pre, at, nets, opts, pin=None):
+        """``phase`` on the card from a snapshot; for a pinned phase
+        replayed against the CPU's record, ``pin`` or not."""
         for k, net in state.nets.items():
             net.load_state_dict(nets[k])
             state.optimizers[k].load_state_dict(opts[k])
-        cctx = {**copied(pre, "cuda"), "masks": feed.at(at, "cuda")}
-        phase(model, state, cctx)
+        cctx = copied(pre, "cuda")
+        if at is not None:
+            cctx["masks"] = feed.at(at, "cuda")
+        if pin is None:
+            phase(model, state, cctx)
+        else:
+            fed = [state.nets[k] for k in TRUNKS
+                   if pname in BASE_FED.get(name, ())]
+            with pins.replay((pname,), fed, state.nets["Dis_en"], pin):
+                phase(model, state, cctx)
         got = {k: float(v) for k, v in cctx["metrics"].items()
-               if k not in pre["metrics"]}
-        prel = rel_loss_diffs(got, {k: float(post["metrics"][k])
-                                    for k in got})
-        bad.update({f"{pname}:{k}": v for k, v in prel.items()
-                    if not k.startswith("acc") and v > S2D_CPU_LOSS_REL})
-        after = s2d_params(state)
-        for net in BASE_UPDATES[name][pname]:
-            ok, nums = s2d_params_close(
-                after[net], {n: nets_after[net][n] for n in after[net]},
-                lrs[net])
-            log(f"phase 19a {name}:   phase {pname} from the CPU's input, "
-                f"{net}: losses " + " ".join(
-                    f"{k} {v:.1e}" for k, v in prel.items()) + "; "
-                + ", ".join(f"{k} {v:.3g}" for k, v in nums.items()))
-            if not ok:
-                bad[f"{pname}:{net}"] = nums
-    del model, state
+               if k not in pre["metrics"] or float(v) != float(
+                   pre["metrics"][k])}
+        return got, s2d_params(state), None if pin is None else pins.seen
+
+    for i, (pname, phase) in enumerate(model.PHASES):
+        (nets, opts, pre, at), (nets_after, _, post, _) = (snaps[i],
+                                                          snaps[i + 1])
+        pinned = pname in BASE_PINNED.get(name, ())
+        runs = {"": on_card(phase, pname, pre, at, nets, opts,
+                            False if pinned else None)}
+        if pinned:
+            runs["pinned "] = on_card(phase, pname, pre, at, nets, opts, True)
+            own = float64_phase(model, state64, nets, opts, pre, phase)
+        for kind, (got, after, seen) in runs.items():
+            prel = rel_loss_diffs(got, {k: float(post["metrics"][k])
+                                        for k in got})
+            bad.update({f"{kind}{pname}:{k}": v for k, v in prel.items()
+                        if not k.startswith("acc") and v > S2D_CPU_LOSS_REL})
+            for net in BASE_UPDATES[name][pname]:
+                want = {n: nets_after[net][n] for n in after[net]}
+                before = {n: nets[net][n].cpu() for n in after[net]}
+                ok, nums = base_params_close(after[net], want, before,
+                                             lrs[net], net in sgd)
+                held = kind or not pinned
+                extra = ""
+                if pinned:
+                    extra = f"; {pins_said(seen)}"
+                if kind:
+                    ok = ok and max(seen["outputs"], seen["feats"] or 0.0
+                                    ) <= PIN_OUT_REL
+                elif pinned:
+                    extra += "; reported: float64 (CPU " + ", ".join(
+                        f"{k} {v:.3g}" for k, v in base_params_close(
+                            want, own[net], before, lrs[net],
+                            net in sgd)[1].items()) + "; card " + ", ".join(
+                        f"{k} {v:.3g}" for k, v in base_params_close(
+                            after[net], own[net], before, lrs[net],
+                            net in sgd)[1].items()) + ")"
+                log(f"{tag}:   phase {pname} {kind}from the CPU's input, "
+                    f"{net}: losses " + " ".join(
+                        f"{k} {v:.1e}" for k, v in prel.items()) + "; "
+                    + ", ".join(f"{k} {v:.3g}" for k, v in nums.items())
+                    + extra)
+                if held and not ok:
+                    bad[f"{kind}{pname}:{net}"] = nums
+    out = first["out"]
+    del model, state, state64, first
     torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"{name} card vs CPU: {bad}")
@@ -3031,42 +3393,77 @@ def phase_base_card_vs_cpu(name):
 
 
 def phase_base_bf16(name):
-    """Phase 19b for ``name``: the first bf16 step against the fp32 one from
-    one seed and batch (``BASE_BF16_BATCH``): losses within 5e-2 relative,
-    all finite."""
+    """Phase 19b (20b) for ``name``: the first bf16 step against the fp32
+    one from one seed and batch (``BASE_BF16_BATCH``), all losses finite
+    and within 5e-2 relative, both as the step first computes each (the
+    D losses of S2D_nd's first D phase, from the init) and as it ends; the
+    end value of a ``BASE_REPORTED`` loss is reported, and the phase that
+    last computes it is held from the fp32 step's input to it instead."""
     import torch
 
     from cycle_depth_estimation_tpu_torch.models import create_model
 
     batch = on(s2d_batch(BASE_BF16_BATCH, seed=19, size=(BASE_H, BASE_W)),
                "cuda")
-    runs = {}
+    reported = BASE_REPORTED.get(name, ())
+    runs, snap = {}, None
     for dtype in ("float32", "bfloat16"):
         model = create_model(base_config(name, dtype=dtype))
         state = model.init_state()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        state, m = model.train_step(state, batch)
+        for net in state.nets.values():
+            net.train()
+        ctx, first = model._ctx(state, batch), {}
+        for i, (_, phase) in enumerate(model.PHASES):
+            if reported and dtype == "float32" and i == len(model.PHASES) - 1:
+                snap = s2d_snapshot(state, ctx, "cuda")
+            phase(model, state, ctx)
+            for k, v in ctx["metrics"].items():
+                first.setdefault(k, float(v))
         torch.cuda.synchronize()
-        runs[dtype] = ({k: float(v) for k, v in m.items()},
+        runs[dtype] = (first, {k: float(v) for k, v in
+                               ctx["metrics"].items()},
                        torch.cuda.max_memory_allocated())
-        del model, state
+        if snap is not None and dtype == "bfloat16":
+            for k, net in state.nets.items():
+                net.load_state_dict(snap[0][k])
+                state.optimizers[k].load_state_dict(snap[1][k])
+            before = {k: float(v) for k, v in snap[2]["metrics"].items()}
+            model.PHASES[-1][1](model, state, snap[2])
+            runs["last"] = {k: float(v) for k, v in snap[2]["metrics"].items()
+                            if k in reported and float(v) != before[k]}
+        del model, state, ctx
         torch.cuda.empty_cache()
-    (m32, pk32), (m16, pk16) = runs["float32"], runs["bfloat16"]
-    rel = {k: v for k, v in rel_loss_diffs(m16, m32).items()
+    (f32, m32, pk32), (f16, m16, pk16) = runs["float32"], runs["bfloat16"]
+    rel = {k: v for k, v in rel_loss_diffs(f16, f32).items()
            if not k.startswith("acc")}
-    log(f"phase 19b {name}: bf16 vs fp32, bs{BASE_BF16_BATCH}: first-step "
-        "losses relative: " + " ".join(f"{k} {v:.1e}" for k, v in rel.items())
+    last = {k: v for k, v in rel_loss_diffs(m16, m32).items()
+            if k in rel and m32[k] != f32[k]}  # rewritten by a later phase
+    from_fp32 = rel_loss_diffs(runs.get("last", {}), m32)
+    held = [*rel.values(), *from_fp32.values(),
+            *(v for k, v in last.items() if k not in reported)]
+    log(f"phase {BASE_TAG[name]}b {name}: bf16 vs fp32, bs{BASE_BF16_BATCH}: "
+        "first-step losses relative: " + " ".join(
+            f"{k} {v:.1e}" for k, v in rel.items())
+        + "".join(f"; the step's last {k} {v:.1e}" + (
+            " (reported)" if k in reported else "")
+            for k, v in last.items())
+        + "".join(f"; {k} from the fp32 step's input to its phase {v:.1e}"
+                  for k, v in from_fp32.items())
         + f"; peak fp32 {pk32 / 2 ** 30:.2f} GiB, bf16 {pk16 / 2 ** 30:.2f}"
         " GiB")
-    if not all(math.isfinite(v) for v in m16.values()) or \
-            max(rel.values()) > BF16_LOSS_REL:
-        raise AssertionError(f"{name} bf16 vs fp32: {m16} against {m32}")
-    return {"rel": rel, "peak_fp32": pk32, "peak_bf16": pk16}
+    if not all(math.isfinite(v) for v in (*f16.values(), *m16.values(),
+                                          *runs.get("last", {}).values())) \
+            or max(held) > BF16_LOSS_REL:
+        raise AssertionError(f"{name} bf16 vs fp32: {m16} against {m32}; "
+                             f"from fp32's input {from_fp32}")
+    return {"rel": rel, "last": last, "from_fp32": from_fp32,
+            "peak_fp32": pk32, "peak_bf16": pk16}
 
 
 def phase_base_timed(name):
-    """Phase 19c for ``name``: the fp32 step timed (one warm-up, three
+    """Phase 19c (20c) for ``name``: the fp32 step timed (one warm-up, three
     timed) and profiled at each of ``BASE_BATCHES``; where the last does
     not fit in the card's memory, the largest of ``BASE_FALLBACK_BATCHES``
     that does, said so."""
@@ -3086,14 +3483,17 @@ def phase_base_timed(name):
             except torch.cuda.OutOfMemoryError:
                 del model, state, batch
                 torch.cuda.empty_cache()
-                log(f"phase 19c {name}: batch {k} does not fit")
+                log(f"phase {BASE_TAG[name]}c {name}: batch {k} does not "
+                    "fit")
                 continue
             flops = sum(base_step_flops(name, k)[0].values())
-            log(f"phase 19c {name}: train step bs{k} {BASE_H}x{BASE_W} fp32 "
+            log(f"phase {BASE_TAG[name]}c {name}: train step bs{k} "
+                f"{BASE_H}x{BASE_W} fp32 "
                 f"(TF32 off): {dt * 1e3:.1f} ms/step = {k / dt:.2f} img/s, "
                 f"{flops / dt / 1e12:.1f} TFLOP/s; peak memory "
                 f"{peak / 2 ** 30:.2f} GiB")
-            profile_step(f"phase 19c {name} bs{k}", model, state, batch)
+            profile_step(f"phase {BASE_TAG[name]}c {name} bs{k}", model,
+                         state, batch)
             out[f"bs{k}"] = {"ms": dt * 1e3, "img_s": k / dt, "peak": peak}
             del model, state, batch
             torch.cuda.empty_cache()
@@ -3103,10 +3503,21 @@ def phase_base_timed(name):
     return out
 
 
+class GlobalOnly(contextlib.nullcontext):
+    """A stand-in for ``FlopCounterMode``'s module tracker: every count
+    goes to the global total."""
+
+    parents = {"Global"}
+
+
 def base_step_flops(name, n):
     """The FLOPs of one train step of ``name`` at batch ``n`` by phase,
     counted by ``torch.utils.flop_counter`` on the meta device (no device
-    needed), and its parameter count."""
+    needed), and its parameter count. The counter runs without its module
+    tracker, whose backward hooks refuse the gradient penalty's
+    ``autograd.grad``; only the total is read. The tracker is the private
+    ``mod_tracker`` attribute, replaced as torch 2.11 and 2.13 name it; a
+    torch without it fails here."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -3119,6 +3530,10 @@ def base_step_flops(name, n):
         batch = {k: torch.empty_like(v) for k, v in s2d_batch(
             n, size=(BASE_H, BASE_W)).items()}
     counter, by_phase = FlopCounterMode(display=False), {}
+    if not hasattr(counter, "mod_tracker"):
+        raise AssertionError(f"torch {torch.__version__}: FlopCounterMode "
+                             "has no mod_tracker to replace")
+    counter.mod_tracker = GlobalOnly()
     with counter:
         ctx = model._ctx(state, batch)
         for pname, phase in model.PHASES:
@@ -3130,57 +3545,71 @@ def base_step_flops(name, n):
     return by_phase, params
 
 
-def start_base_clis():
-    """Phase 19d: ``python -m ...train --model S2D_base`` and ``--model
-    S2D_alt`` at full width on vKITTI-sized files, two steps each, each in
-    a process (and session) of its own; the caller ends them."""
-    run = {"dir": tempfile.TemporaryDirectory()}
+def base_flags(name):
+    """Case ``name``'s config fields as train CLI flags."""
+    out = []
+    for k, v in base_case(name).items():
+        out += [f"--{k}"] if v is True else [
+            f"--{k}", *map(str, v if isinstance(v, list) else [v])]
+    return out
+
+
+def start_base_clis(names):
+    """Phase 19d (20d): ``python -m ...train`` for each case of ``names``
+    at full width on vKITTI-sized files, two steps each, each in a process
+    (and session) of its own; the caller ends them."""
+    run = {"dir": tempfile.TemporaryDirectory(), "names": names}
     tmp = run["dir"].name
     files = write_try_files(os.path.join(tmp, "data"), n=2,
                             size=BASE_CLI_SIZE)
-    for name in BASE_MODELS:
-        args = [
-            "--model", name, *files, "--checkpoints_dir",
+    for name in names:
+        run["args", name] = [
+            *base_flags(name), *files, "--checkpoints_dir",
             os.path.join(tmp, "ck"), "--name", name, "--niter", "1",
             "--niter_decay", "0", "--save_epoch_freq", "1", "--print_freq",
             "1", "--display_freq", "2", "--num_threads", "2", "--device",
-            "cuda",
-            *(f for k, v in BASE_WIDTHS[name].items() for f in (
-                f"--{k}", *map(str, v if isinstance(v, list) else [v])))]
-        run[name] = start_cli(TRAIN_CLI, args)
+            "cuda"]
+        run[name] = start_cli(TRAIN_CLI, run["args", name])
     return run
 
 
-def end_base_clis(run):
-    """Wait for both CLIs; each wrote its nets for epoch 1 after two steps,
-    and they load back."""
+def end_base_clis(run, epoch=1, steps=2):
+    """Wait for the CLIs; each wrote its nets (``model_names``) for
+    ``epoch`` after ``steps`` steps, and they load back."""
     import torch
 
     from cycle_depth_estimation_tpu_torch.models import create_model
 
     seconds = {}
-    for name in BASE_MODELS:
+    for name in run["names"]:
         seconds[name] = end_cli(run.pop(name), f"{name} train CLI")[1]
         model = create_model(base_config(name, device="cpu"))
         model.cfg = model.cfg.replace(checkpoints_dir=os.path.join(
             run["dir"].name, "ck"), name=name)
         expr = model.cfg.expr_dir()
-        st = torch.load(os.path.join(expr, "1_train_state.pth"),
+        st = torch.load(os.path.join(expr, f"{epoch}_train_state.pth"),
                         map_location="cpu", weights_only=True)
-        if st["step"] != 2:
-            raise AssertionError(f"{name} CLI: step {st['step']}, want 2")
-        model.load_nets(model.init_state(), 1)
-    run["dir"].cleanup()
+        if st["step"] != steps:
+            raise AssertionError(f"{name} CLI: step {st['step']}, want "
+                                 f"{steps}")
+        model.load_networks(model.init_state(), epoch)
     return seconds
 
 
-def phase_s2d_base_generation():
-    """Phase 19: S2D_base and S2D_alt at full width (the JAX defaults:
-    DenseNet-169 GeneralNet2 with 3 resnet blocks in G_1, ndf 64,
-    d_repeat_num 4; S2D_alt's two 3-block GBase encoders, FeatureNet and
-    the 128-channel Dis_en), 192×576, fp32 with TF32 off: 19a, 19b and 19c
-    for each, the two train CLIs (19d) beside 19a. Neither model has an
-    InstanceNorm: the kernel counts must not move."""
+def resume_base_clis(run):
+    """Phase 20d's resumes: each CLI again with ``--continue_train`` for
+    epoch 2 (one step), in a process of its own."""
+    for name in run["names"]:
+        run[name] = start_cli(TRAIN_CLI, run["args", name] + [
+            "--continue_train", "--epoch_count", "2", "--niter", "2",
+            "--max_dataset_size", "1"])
+
+
+def phase_base_generation(names, tag, resume=False):
+    """Phase 19 (20): 19a, 19b and 19c for each case of ``names``, the
+    train CLIs (19d) beside 19a and, with ``resume``, their resumes beside
+    19b and 19c. None of these models has an InstanceNorm: the kernel
+    counts must not move."""
     from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
         instance_norm, instance_norm_backward)
     from cycle_depth_estimation_tpu_torch.ops.kernels.int8_epilogue import (
@@ -3189,29 +3618,40 @@ def phase_s2d_base_generation():
     counters = (instance_norm, instance_norm_backward, fused_in_epilogue)
     for k in counters:
         k.launches = 0
-    for name in BASE_MODELS:
+    for name in names:
         cfg = base_config(name)
         if (cfg.dataset_mode, cfg.batch_size, cfg.fine_size) != ("try", 1,
                                                                  BASE_H):
             raise AssertionError(f"{name} defaults: {cfg}")
-    clis = start_base_clis()
-    out = {}
+    clis = start_base_clis(names)
+    out, resumed = {}, {}
     try:
-        for name in BASE_MODELS:
-            out[name] = {"card_vs_cpu": phase_base_card_vs_cpu(name)}
+        try:
+            for name in names:
+                out[name] = {"card_vs_cpu": phase_base_card_vs_cpu(name)}
+        finally:
+            cli_s = end_base_clis(clis)
+        if resume:
+            resume_base_clis(clis)
+        try:
+            for name in names:
+                out[name]["bf16"] = phase_base_bf16(name)
+                out[name].update(phase_base_timed(name))
+        finally:
+            if resume:
+                resumed = end_base_clis(clis, epoch=2, steps=3)
     finally:
-        cli_s = end_base_clis(clis)
-    for name in BASE_MODELS:
-        out[name]["bf16"] = phase_base_bf16(name)
-        out[name].update(phase_base_timed(name))
+        clis["dir"].cleanup()
     moved = {k.__name__: k.launches for k in counters if k.launches}
     if moved:
-        raise AssertionError(f"S2D_base/S2D_alt launched InstanceNorm or "
+        raise AssertionError(f"{', '.join(names)} launched InstanceNorm or "
                              f"epilogue kernels: {moved}")
-    log("phase 19 ok: no InstanceNorm or epilogue launch; "
+    log(f"phase {tag} ok: no InstanceNorm or epilogue launch; "
         + ", ".join(f"python -m cycle_depth_estimation_tpu_torch.train "
-                    f"--model {n} (full width, vKITTI-sized PNGs, 2 steps) "
-                    f"{s:.1f} s" for n, s in cli_s.items())
+                    f"{' '.join(base_flags(n))} (full width, vKITTI-sized "
+                    f"PNGs, 2 steps) {s:.1f} s" for n, s in cli_s.items())
+        + "".join(f", {n}'s resume (1 step) {s:.1f} s"
+                  for n, s in resumed.items())
         + "; the nets load back")
     return out
 
@@ -3391,7 +3831,9 @@ def main() -> int:
         if "resume" in seg_cli:
             end_cli(seg_cli.pop("resume"), "SegCycle train CLI resume")
     s2d = phase_s2d()
-    base = phase_s2d_base_generation()
+    base = phase_base_generation(BASE_MODELS, "19")
+    two_trunk = phase_base_generation(TWO_TRUNK, "20",
+                                      resume=True)
     rf_cli = start_rf_lw_cli()  # beside phase 18b's checks
     try:
         rf, rf_lw = counts_of(lambda: phase_rf_lw(rf_cli))
@@ -3476,8 +3918,9 @@ def main() -> int:
         + ", ".join(f"bs{n} {rf[f'bs{n}']['img_s']:.2f}" for n in RF_BATCHES)
         + f" img/s ({RF_H}x{RF_W}); "
         + "; ".join(f"{m} fp32 " + ", ".join(
-            f"{k} {v['img_s']:.2f}" for k, v in base[m].items()
-            if k.startswith("bs")) for m in BASE_MODELS)
+            f"{k} {v['img_s']:.2f}" for k, v in runs[m].items()
+            if k.startswith("bs"))
+            for runs in (base, two_trunk) for m in runs)
         + f" img/s ({BASE_H}x{BASE_W}); "
         "kernel "
         "ms are sums over the calls of one forward (23: instance_norm in "

@@ -1,12 +1,13 @@
 """Config of the port: the subset of the JAX package's ``Config`` that the
 test CLI, the CycleGAN, pix2pix, SegCycle, T2Net (``seg``), S2D,
-``S2D_base``, ``S2D_alt`` and RefineNet-LW (``rf_lw``, ``rf_lw7``) models,
-the data layer and the train CLI read, with the same field
-names, defaults, reference flag aliases (``--loadSize``, ``--netD``,
-``--lambda_A`` …) and two-phase parse (base flags, then per-model defaults
-for flags the user did not set). ``device`` is new: the port runs on
-``cuda`` unless told ``cpu``; ``pth_path`` is the flag the JAX CLI parses by
-hand. Flags of slices not ported yet are absent, so argparse rejects them.
+``S2D_base``, ``S2D_alt``, ``S2D_df``, ``S2D_nd`` and RefineNet-LW
+(``rf_lw``, ``rf_lw7``) models, the data layer and the train CLI read, with
+the same field names, defaults, reference flag aliases (``--loadSize``,
+``--netD``, ``--lambda_A`` …) and two-phase parse (base flags, then
+per-model defaults for flags the user did not set). ``device`` is new: the
+port runs on ``cuda`` unless told ``cpu``; ``pth_path`` is the flag the JAX
+CLI parses by hand. Flags of slices not ported yet are absent, so argparse
+rejects them.
 """
 
 from __future__ import annotations
@@ -114,6 +115,16 @@ class Config:
     # (the dis_seg generation), and its depth (G2Blocks trains 3)
     dis_seg: bool = False
     d_repeat_num: int = 4
+    # S2D_df: the Seg phase's adversarial weight, the dilated generation's
+    # 5× adversarial term in G_1's phase, and the D phase's real-branch
+    # weight (--df_adv_w 5 --df_g1_adv: dilated; --df_d_real_w 0.2:
+    # trymulti)
+    df_adv_w: float = 2.0
+    df_g1_adv: bool = False
+    df_d_real_w: float = 1.0
+    # S2D_nd: new_depseg's model3 "4dis" variant, twin 256-channel critics
+    # with Adam and no gradient penalty in place of the SGD+GP Dis_en
+    nd_4dis: bool = False
     # RefineNet-LW: the ResNet trunk's blocks per layer; None is rf_lw's
     # (3, 4, 23, 3) and rf_lw7's (3, 4, 6, 3)
     resnet_layers: Optional[List[int]] = None
@@ -160,6 +171,8 @@ MODEL_DEFAULTS = {
     "rf_lw": dict(dataset_mode="try", batch_size=1, fine_size=192),
     "rf_lw7": dict(dataset_mode="try", batch_size=1, fine_size=192),
     "S2D_base": dict(dataset_mode="try", batch_size=1, fine_size=192),
+    "S2D_df": dict(dataset_mode="try", batch_size=1, fine_size=192),
+    "S2D_nd": dict(dataset_mode="try", batch_size=1, fine_size=192),
     "S2D_alt": dict(dataset_mode="try", batch_size=1, fine_size=192,
                     net_g="3blocks"),
 }

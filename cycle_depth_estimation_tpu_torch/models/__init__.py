@@ -1,7 +1,8 @@
 """Model registry: ``--model <name>`` → model class (the JAX package's
 ``models/__init__.py``). The port registers ``test`` (serving),
 ``cycle_gan``, ``pix2pix``, ``seg_cycle`` (SegCycle), ``seg`` (T2Net),
-``S2D``, ``S2D_base``, ``S2D_alt``, ``rf_lw`` and ``rf_lw7`` (training)."""
+``S2D``, ``S2D_base``, ``S2D_alt``, ``S2D_df``, ``S2D_nd``, ``rf_lw`` and
+``rf_lw7`` (training)."""
 
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ def register_model(name: str):
 def create_model(cfg, device=None):
     """Build the model ``cfg.model`` on ``device`` (default ``cfg.device``)."""
     from . import (cycle_gan, pix2pix, rf_lw, s2d,  # noqa: F401
-                   s2d_alt, s2d_base, seg_cycle, seg_model,  # (register)
-                   test_model)
+                   s2d_alt, s2d_base, s2d_df, s2d_nd,  # (register)
+                   seg_cycle, seg_model, test_model)
 
     if cfg.model not in _MODEL_REGISTRY:
         raise KeyError(f"model [{cfg.model}] not registered; available: "

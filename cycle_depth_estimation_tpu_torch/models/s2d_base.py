@@ -48,9 +48,10 @@ from .s2d_networks import CLASS_WEIGHTS_28, define_s2d_base_nets
 from .seg_network import cross_entropy_loss, seg_accuracy
 
 
-class DropMaskModel(BaseModel):
-    """What S2D_base and S2D_alt share: the nets from one seed, an Adam per
-    net, the dropout keep-masks of Dis_en and the train step's frame."""
+class PhasedModel(BaseModel):
+    """What the base and the two-trunk S2D generations share: the nets from
+    one seed, an optimizer per net (Adam unless ``_optimizer`` says
+    otherwise) and a train step of named ``PHASES``."""
 
     define_nets: Callable = None
     PHASES: Tuple = ()
@@ -58,29 +59,31 @@ class DropMaskModel(BaseModel):
     def _lr(self, name: str) -> float:
         return self.cfg.lr
 
+    def _optimizer(self, name: str, params) -> torch.optim.Optimizer:
+        return make_optimizer(params, self._lr(name), self.cfg.beta1)
+
     def init_state(self, seed: int = None) -> ModelState:
-        """The nets from ``seed`` (default ``cfg.seed``) and one Adam
+        """The nets from ``seed`` (default ``cfg.seed``) and one optimizer
         each."""
         cfg = self.cfg
         gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
         nets = {k: set_compute_dtype(v.to(self.device), cfg.compute_dtype())
                 for k, v in type(self).define_nets(cfg, gen).items()}
-        optimizers = {k: make_optimizer(nets[k].parameters(), self._lr(k),
-                                        cfg.beta1)
+        optimizers = {k: self._optimizer(k, nets[k].parameters())
                       for k in self.model_names}
         return ModelState(nets=nets, optimizers=optimizers, pools={})
 
-    def dropout_masks(self, state: ModelState, n: int):
-        """A function that returns the next Dis_en forward's keep-masks for
-        a batch of ``n``, drawn on the CPU from a generator seeded by
-        ``seed`` and the step."""
-        gen = torch.Generator().manual_seed(
+    def step_generator(self, state: ModelState) -> torch.Generator:
+        """A CPU generator seeded by ``seed`` and the step: what a step
+        draws from it, the card and the CPU draw alike, and a resumed run
+        draws what the run would have."""
+        return torch.Generator().manual_seed(
             (self.cfg.seed + 1) * 1_000_003 + state.step)
-        dis = state.nets["Dis_en"]
-        return lambda: [m.to(self.device) for m in dis.draw_masks(n, gen)]
 
     def _step(self, state: ModelState, names, loss: torch.Tensor):
-        """One Adam step of each net of ``names`` on ``loss``'s gradient."""
+        """One optimizer step of each net of ``names`` on ``loss``'s
+        gradient; a parameter ``loss`` does not reach gets a zero one, so
+        that Adam counts the step as optax does."""
         params = [list(state.nets[k].parameters()) for k in names]
         grads = torch.autograd.grad(loss, [p for ps in params for p in ps],
                                     allow_unused=True)
@@ -96,12 +99,9 @@ class DropMaskModel(BaseModel):
     def _ctx(self, state: ModelState, batch) -> dict:
         f = lambda k: batch[k].to(self.device, torch.float32)  # noqa: E731
         lab = lambda k: batch[k].to(self.device, torch.long)   # noqa: E731
-        syn_img = f("img_syn")
-        return dict(syn_img=syn_img, real_img=f("img_real"),
+        return dict(syn_img=f("img_syn"), real_img=f("img_real"),
                     syn_seg_l=lab("seg_l_syn"), real_seg_l=lab("seg_l_real"),
-                    syn_dep_l=f("dep_l_syn"),
-                    masks=self.dropout_masks(state, syn_img.shape[0]),
-                    metrics={})
+                    syn_dep_l=f("dep_l_syn"), metrics={})
 
     def train_step_phased(self, state: ModelState, batch,
                           progress: Optional[Callable[[str], None]] = None
@@ -124,6 +124,23 @@ class DropMaskModel(BaseModel):
     def train_step(self, state: ModelState, batch
                    ) -> Tuple[ModelState, Dict[str, torch.Tensor]]:
         return self.train_step_phased(state, batch)
+
+
+class DropMaskModel(PhasedModel):
+    """A ``PhasedModel`` whose Dis_en has live dropout: the step context's
+    ``masks`` gives each Dis_en forward its keep-masks."""
+
+    def dropout_masks(self, state: ModelState, n: int):
+        """A function that returns the next Dis_en forward's keep-masks for
+        a batch of ``n``, drawn on the CPU from ``step_generator``."""
+        gen = self.step_generator(state)
+        dis = state.nets["Dis_en"]
+        return lambda: [m.to(self.device) for m in dis.draw_masks(n, gen)]
+
+    def _ctx(self, state, batch):
+        ctx = super()._ctx(state, batch)
+        ctx["masks"] = self.dropout_masks(state, ctx["syn_img"].shape[0])
+        return ctx
 
 
 @register_model("S2D_base")

@@ -28,17 +28,27 @@ the reference's state-dict names:
   keep-masks passed in, optionally conditioned on the label map).
   ``S2D_alt`` (networks.py): the ``GBase`` encoders, ``FeatureNet``, the
   skip decoders ``SEGAlt``/``DEPAlt``; and ``PSPModule``. ``GeneralNet``,
-  ``GeneralNet2`` and ``FeatureNet`` share one ``PspHead``. flax infers
-  each layer's input width; here the widths come from the nets they follow
-  (``feature_channels``, G_1's 64).
+  ``GeneralNet2`` and ``FeatureNet`` share one ``PspHead``;
+- the two-trunk generations (two ``GeneralNet2``, shared skip-free
+  decoders, a 1×1 critic). ``S2D_df`` (deeperfeatures/networks2.py):
+  ``SEGDF``, ``DEPDF`` (a growth-36 dense prefix) and ``Dis2SegDF``.
+  ``S2D_nd`` (new_depseg/networks2.py): ``SEG`` and ``DEP`` (``ordimat``
+  coordinate channels), ``DiscriminatorSeg`` and, with ``--nd_4dis``, two
+  256-channel ``Dis2SegDF``; ``bce_gan_loss``, ``real_dep_loss`` and the
+  WGAN-GP ``calc_gradient_penalty``.
+
+flax infers each layer's input width; here the widths come from the nets
+they follow (``feature_channels``, G_1's 64, ``mid_nc``, SEGDF's
+``feature_nc``).
 
 All BatchNorms are ``ops/layers.BatchNorm`` (flax's running-variance
 update). Each net's ``jax_sites`` names its parts as the JAX module's
 variable tree does, which ``utils/weights.s2d_state_dicts_from_jax`` reads.
 A reference ``.pth`` loads as it is: ``load_state_dict`` drops the
 DataParallel ``module.`` prefix, ``RDep`` the ``up0``/``dep_out``/``norm``
-entries its forward never uses and ``SEG2``/``DEP2`` their DeconvBlocks'
-unused ``bn``, as the JAX importers do.
+entries its forward never uses and the decoders with ``DeconvBlock``s
+(``SEG2``, ``DEP2``, ``SEG``, ``DEP``, ``SEGDF``, ``DEPDF``) their unused
+``bn``, as the JAX importers do.
 
 The JAX package's ``CDE_DENSE_CHUNKED`` dense blocks compute the same
 function with the same variables in another memory layout for the TPU;
@@ -498,6 +508,93 @@ class DeconvBlock(nn.Module, Sites):
                 else {"deconv": self.deconv, "bn": self.bn})
 
 
+def ordimat(x: torch.Tensor) -> torch.Tensor:
+    """The coordinate channels of ``x`` (networks5_ds.py:824-838): (row
+    index, column index) as two channels of x's size, device and dtype."""
+    n, _, h, w = x.shape
+    rows = torch.arange(h, device=x.device, dtype=torch.float32)
+    cols = torch.arange(w, device=x.device, dtype=torch.float32)
+    grid = torch.stack(torch.meshgrid(rows, cols, indexing="ij"))
+    return grid.to(x.dtype).expand(n, 2, h, w)
+
+
+class _Ladder(_ReferenceNet):
+    """The skip-free decoders of the lineage's legacy generations: four
+    ``DeconvBlock``s (``Up.0..3``) to 512, 256, 128 and 64 channels, each ×2,
+    then a 1×1 head ``Up.4``; with ``coords`` two ``ordimat`` channels go in
+    front of each DeconvBlock. A reference ``.pth`` also holds each
+    DeconvBlock's unused ``bn``; ``load_state_dict`` drops it. JAX names:
+    ``up{i}``, ``head``."""
+
+    unused_prefixes = tuple(f"Up.{i}.bn." for i in range(4))
+    WIDTHS = (512, 256, 128, 64)
+
+    def __init__(self, input_nc: int, out_c: int, negative_slope: float,
+                 coords: bool = False):
+        super().__init__()
+        ins = (input_nc, *self.WIDTHS[:-1])
+        self.coords = coords
+        self.Up = nn.ModuleList(
+            [DeconvBlock(a + 2 * coords, b, negative_slope=negative_slope)
+             for a, b in zip(ins, self.WIDTHS)]
+            + [Conv2d(self.WIDTHS[-1], out_c, 1)])
+
+    def decode(self, x):
+        """The head's output and each DeconvBlock's."""
+        outs, h = [], x
+        for up in self.Up[:4]:
+            h = up(torch.cat([h, ordimat(h)], 1) if self.coords else h)
+            outs.append(h)
+        return self.Up[4](h), outs
+
+    def jax_sites(self):
+        return {**{f"up{i}": self.Up[i] for i in range(4)},
+                "head": self.Up[4]}
+
+
+class _SegLadder(_Ladder):
+    """A ``_Ladder`` to ``n_cls`` channels, then BN (``activation_seg.0``)
+    and LeakyReLU(0.01)."""
+
+    def __init__(self, n_cls: int, input_nc: int, negative_slope: float):
+        super().__init__(input_nc, n_cls, negative_slope)
+        self.activation_seg = nn.Sequential(BatchNorm(n_cls),
+                                            nn.LeakyReLU(0.01))
+
+    def jax_sites(self):
+        return {**super().jax_sites(), "act_norm": self.activation_seg[0]}
+
+
+class SEG(_SegLadder):
+    """SEG (networks5_ds.py:866-890): the ladder over ``input_nc`` channels
+    (G's ``mid_nc``) to ``n_cls`` classes. ``forward`` returns (seg, its
+    input). ``negative_slope``: the DeconvBlocks' LeakyReLU, 0.02 in
+    networks5_ds, 0 (ReLU) in the new_depseg generation (S2D_nd)."""
+
+    def __init__(self, n_cls: int, input_nc: int,
+                 negative_slope: float = LEAK):
+        super().__init__(n_cls, input_nc, negative_slope)
+
+    def forward(self, x):
+        return self.activation_seg(self.decode(x)[0]), x
+
+
+class DEP(_Ladder):
+    """DEP (networks5_ds.py:892-921): the ladder over ``input_nc`` channels
+    with two ``ordimat`` channels in front of each DeconvBlock, to one
+    channel; tanh with ``tanh_head`` (the new_depseg generation applies
+    it)."""
+
+    def __init__(self, input_nc: int, tanh_head: bool = False,
+                 negative_slope: float = LEAK):
+        super().__init__(input_nc, 1, negative_slope, coords=True)
+        self.tanh_head = tanh_head
+
+    def forward(self, x):
+        h = self.decode(x)[0]
+        return torch.tanh(h) if self.tanh_head else h
+
+
 # ---------------------------------------------------------------------------
 # the base my_seg_depth generation: S2D_base (networks2.py) and S2D_alt
 # (networks.py)
@@ -535,6 +632,7 @@ class _DenseTrunk(_ReferenceNet):
                 nf //= 2
         self.features = nn.Sequential(OrderedDict(layers))
         self.psp = PspHead(nf, mid_nc)
+        self.mid_nc = mid_nc
         self.n_blocks = len(block_config)
         return tuple(channels)
 
@@ -860,6 +958,146 @@ class DEPAlt(_SkipDecoderAlt):
         return F.leaky_relu(self.decode(features, x), 0.01)
 
 
+# ---------------------------------------------------------------------------
+# the two-trunk generations: S2D_df (deeperfeatures/networks2.py) and S2D_nd
+# (new_depseg/networks2.py)
+# ---------------------------------------------------------------------------
+
+
+class SEGDF(_SegLadder):
+    """SEG of the deeperfeatures generation (networks2.py:532-560): the
+    ReLU ladder over ``input_nc`` channels (G's ``mid_nc``). ``forward``
+    returns (seg, ``Up.0``'s output after a ReLU): the reference stores
+    ``Up.0``'s output and ``Up.1``'s in-place ReLU rewrites it, so what it
+    returns, and DEPDF and Dis0_en read, is post-ReLU. ``feature_nc`` is
+    those features' width."""
+
+    feature_nc = _Ladder.WIDTHS[0]
+
+    def __init__(self, n_cls: int, input_nc: int):
+        super().__init__(n_cls, input_nc, 0.0)
+
+    def forward(self, x):
+        h, outs = self.decode(x)
+        return self.activation_seg(h), F.relu(outs[0])
+
+
+class DEPDF(_Ladder):
+    """DEP of the deeperfeatures generation (networks2.py:563-610): over
+    ``input_nc`` channels (SEGDF's ``feature_nc``) a growth-36 DenseBlock of
+    8 layers (``features.0``), a halving ``Transition`` (``features.1``) and
+    a DenseBlock of 18 (``features.2``), 1048 channels at half the input
+    size from 512; then the ReLU ladder with ``ordimat`` channels to one
+    channel, tanh. JAX names ``block0``, ``trans0``, ``block1``."""
+
+    GROWTH = 36
+
+    def __init__(self, input_nc: int):
+        k = self.GROWTH
+        n0 = input_nc + 8 * k
+        n1 = n0 // 2 + 18 * k
+        super().__init__(n1, 1, 0.0, coords=True)
+        self.features = nn.Sequential(DenseBlock(8, input_nc, k),
+                                      Transition(n0, n0 // 2),
+                                      DenseBlock(18, n0 // 2, k))
+
+    def forward(self, x):
+        return torch.tanh(self.decode(self.features(x))[0])
+
+    def jax_sites(self):
+        f = self.features
+        return {"block0": f[0], "trans0": f[1], "block1": f[2],
+                **super().jax_sites()}
+
+
+class _HalvingCritic(_ReferenceNet):
+    """The norm-free 1×1 critics of these generations: ``repeat_num`` ×
+    [1×1 conv halving the width from ``conv_dim``, LeakyReLU(0.01)]
+    (``main.{2i}``) over ``input_nc`` channels, then the bias-free 1×1 head
+    ``conv1`` to ``head_ch``. JAX names ``conv{i}``, ``head``."""
+
+    def __init__(self, input_nc: int, conv_dim: int, repeat_num: int,
+                 head_ch: int):
+        super().__init__()
+        layers, cur, dim = [], input_nc, conv_dim
+        for _ in range(repeat_num):
+            dim //= 2
+            layers += [Conv2d(cur, dim, 1), nn.LeakyReLU(0.01)]
+            cur = dim
+        self.main = nn.Sequential(*layers)
+        self.conv1 = Conv2d(cur, head_ch, 1, bias=False)
+
+    def jax_sites(self):
+        return {**{f"conv{i}": self.main[2 * i]
+                   for i in range(len(self.main) // 2)},
+                "head": self.conv1}
+
+
+class Dis2SegDF(_HalvingCritic):
+    """Discriminator2_seg of the deeperfeatures generation
+    (networks2.py:499-531), a sigmoid on the head; with one head channel
+    the channel dim is squeezed. S2D_df: ``conv_dim`` 512 over SEGDF's 512
+    features. The new_depseg copy (networks2.py:496-527, ``--nd_4dis``'s
+    twin critics): ``conv_dim`` 256 over a 256-channel slice, 28 head
+    channels."""
+
+    def __init__(self, input_nc: int, conv_dim: int = 512,
+                 repeat_num: int = 3, head_ch: int = 1):
+        super().__init__(input_nc, conv_dim, repeat_num, head_ch)
+
+    def forward(self, x):
+        h = torch.sigmoid(self.conv1(self.main(x)))
+        return h[:, 0] if h.shape[1] == 1 else h
+
+
+class DiscriminatorSeg(_HalvingCritic):
+    """Discriminator_seg (new_depseg/networks2.py:462-494): the critic at
+    ``conv_dim`` 1024 over G's ``mid_nc`` channels, 28 head channels, then
+    LeakyReLU(0.01)."""
+
+    def __init__(self, input_nc: int, conv_dim: int = 1024,
+                 repeat_num: int = 3, n_cls: int = 28):
+        super().__init__(input_nc, conv_dim, repeat_num, n_cls)
+
+    def forward(self, x):
+        return F.leaky_relu(self.conv1(self.main(x)), 0.01)
+
+
+ND_SLICE = 256  # the psp channels each of --nd_4dis's twin critics reads
+
+
+def _trunks(cfg):
+    blocks = tuple(cfg.dense_block_config or (6, 12, 32, 32))
+    return {"G_1": GeneralNet2(block_config=blocks),
+            "G_2": GeneralNet2(block_config=blocks)}
+
+
+def s2d_df_nets(cfg) -> Dict[str, nn.Module]:
+    """The five S2D_df nets at ``cfg``'s ``dense_block_config``,
+    uninitialised: two GeneralNet2 trunks, SEGDF over their ``mid_nc``, and
+    DEPDF and Dis0_en over SEGDF's features."""
+    nets = _trunks(cfg)
+    seg = SEGDF(28, nets["G_1"].mid_nc)
+    return {**nets, "Dis0_en": Dis2SegDF(seg.feature_nc, 512),
+            "Seg_de": seg, "Dep_de": DEPDF(seg.feature_nc)}
+
+
+def s2d_nd_nets(cfg) -> Dict[str, nn.Module]:
+    """The S2D_nd nets at ``cfg``'s ``dense_block_config``, uninitialised:
+    two GeneralNet2 trunks, the ReLU SEG and the tanh DEP over their
+    ``mid_nc``, and Dis_en (``DiscriminatorSeg``) or, with ``nd_4dis``,
+    the twin critics Dis0_en and Dis1_en over 256-channel slices."""
+    nets = _trunks(cfg)
+    mid = nets["G_1"].mid_nc
+    if cfg.nd_4dis:
+        for k in ("Dis0_en", "Dis1_en"):
+            nets[k] = Dis2SegDF(ND_SLICE, ND_SLICE, 3, 28)
+    else:
+        nets["Dis_en"] = DiscriminatorSeg(mid, 1024)
+    return {**nets, "Seg_de": SEG(28, mid, 0.0),
+            "Dep_de": DEP(mid, tanh_head=True, negative_slope=0.0)}
+
+
 def s2d_base_nets(cfg) -> Dict[str, nn.Module]:
     """The five S2D_base nets at ``cfg``'s widths (``g1_blocks``,
     ``dense_block_config``, ``ndf``, ``d_repeat_num``, ``dis_seg``; the
@@ -917,6 +1155,22 @@ def define_s2d_alt_nets(cfg, generator: torch.Generator = None
     """``s2d_alt_nets`` initialised as the JAX nets are: Feature kaiming,
     the rest N(0, 0.02²)."""
     return _init_nets(s2d_alt_nets(cfg), ("Feature",), generator)
+
+
+def define_s2d_df_nets(cfg, generator: torch.Generator = None
+                       ) -> Dict[str, nn.Module]:
+    """``s2d_df_nets`` initialised as the JAX nets are: G_1, G_2 and
+    Dep_de's dense prefix kaiming, the rest N(0, 0.02²)."""
+    nets = _init_nets(s2d_df_nets(cfg), ("G_1", "G_2"), generator)
+    init_weights(nets["Dep_de"].features, "kaiming", 0.0, generator)
+    return nets
+
+
+def define_s2d_nd_nets(cfg, generator: torch.Generator = None
+                       ) -> Dict[str, nn.Module]:
+    """``s2d_nd_nets`` initialised as the JAX nets are: G_1 and G_2
+    kaiming, the rest N(0, 0.02²)."""
+    return _init_nets(s2d_nd_nets(cfg), ("G_1", "G_2"), generator)
 
 
 def s2d_nets(cfg) -> Dict[str, nn.Module]:
@@ -983,3 +1237,52 @@ def bce_dep_loss_truncated(pred: torch.Tensor, target: torch.Tensor,
     del z_m
     pred, target = pred.float(), target.float()
     return F.binary_cross_entropy((pred + 1) / 2 * o_m, (target + 1) / 2 * o_m)
+
+
+def _at_least_fp32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def bce_gan_loss(pred: torch.Tensor, target_is_real: bool) -> torch.Tensor:
+    """The GANLoss of the my_seg_depth generations: BCE against a 1 or 0
+    target on the critic's output (new_depseg/networks2.py:626-650), in
+    fp32 (float64 stays float64), the output clamped to [1e-7, 1 − 1e-7]
+    as the JAX ``bce_gan_loss`` does (BCE is NaN past [0, 1], where a
+    LeakyReLU head goes). ``F.binary_cross_entropy`` is the JAX formula
+    inside that range, with ATen's clamped backward."""
+    p = _at_least_fp32(pred).clamp(1e-7, 1.0 - 1e-7)
+    return F.binary_cross_entropy(p, torch.full_like(p, float(target_is_real)))
+
+
+def real_dep_loss(seg_p: torch.Tensor, seg_l: torch.Tensor,
+                  dep_p: torch.Tensor, dep_l: torch.Tensor) -> torch.Tensor:
+    """model3's pseudo-label depth term (deeperfeatures/model3.py:472-483):
+    L1 between the real depth prediction and the *synthetic* depth label
+    where the real seg prediction's argmax (the first maximum) equals the
+    *synthetic* label map, per sample: cross-domain as the reference wrote
+    it. Everything is detached: the term only reports. NCHW ``seg_p``,
+    NHW ``seg_l``, N1HW ``dep_p`` and ``dep_l``; fp32."""
+    mask = (seg_p.detach().float().argmax(1) == seg_l).float()
+    dep_p = dep_p.detach().float()[:, 0]
+    return (mask * dep_p - mask * dep_l.float()[:, 0]).abs().mean()
+
+
+def calc_gradient_penalty(d, x_real: torch.Tensor, x_fake: torch.Tensor,
+                          alpha: torch.Tensor, lambda_: float = 10.0
+                          ) -> torch.Tensor:
+    """The WGAN-GP penalty of the reference (semantic_trans/model5.py:
+    354-382) with its quirks: only sample 0 is interpolated, by ``alpha``,
+    the rest of the batch stays ``x_real``; the gradient's norm is taken
+    over the channel axis alone, per pixel, with 1e-12 inside the square
+    root. λ·mean((‖∂Σd(x̂)/∂x̂‖ − 1)²) in fp32 (float64 stays
+    float64), differentiable in ``d``'s
+    parameters (``create_graph``). The JAX function draws ``alpha`` from a
+    key; the caller passes it here."""
+    interp = _at_least_fp32(x_real.detach()).clone()
+    interp[0] = (alpha * interp[0]
+                 + (1.0 - alpha) * _at_least_fp32(x_fake[0].detach()))
+    interp.requires_grad_(True)
+    (g,) = torch.autograd.grad(_at_least_fp32(d(interp)).sum(), interp,
+                               create_graph=True)
+    gnorm = torch.sqrt((g * g).sum(1) + 1e-12)
+    return lambda_ * ((gnorm - 1.0) ** 2).mean()

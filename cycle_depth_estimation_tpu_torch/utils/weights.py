@@ -29,7 +29,12 @@ takes instance norm only; the port's converter takes BatchNorm too):
 ``import_drop_discriminator``; ``s2d_alt_state_dicts_from_jax`` of
 ``import_gbase``, ``import_drop_discriminator``, ``import_feature_net`` and
 ``import_skip_decoder_alt`` (``PSPModule`` has no importer: it is held
-against the JAX module's outputs);
+against the JAX module's outputs); ``s2d_df_state_dicts_from_jax`` of
+``import_general_net2``, ``import_seg_df``, ``import_dep_df`` and
+``import_dis2seg_df``; ``s2d_nd_state_dicts_from_jax`` of
+``import_general_net2``, ``import_seg_decoder``, ``import_dep_decoder``
+and ``import_dis2seg_df`` (which reads ``DiscriminatorSeg`` and the twin
+critics too);
 ``rf_lw_state_dicts_from_jax`` of ``import_resnetlw`` and ``import_segd``
 (rf_lw7's ``depth`` block has no importer: it is held against the JAX
 module's outputs).
@@ -55,7 +60,8 @@ from ..models.networks import (_RESNET_BLOCKS, _UNET_DOWNS,
                                NLayerDiscriminator, PixelDiscriminator,
                                ResnetGenerator, UnetGenerator)
 from ..models.refinenet import rf_lw_nets
-from ..models.s2d_networks import s2d_alt_nets, s2d_base_nets, s2d_nets
+from ..models.s2d_networks import (s2d_alt_nets, s2d_base_nets,
+                                    s2d_df_nets, s2d_nd_nets, s2d_nets)
 from ..models.seg_network import UNetGenerator
 from ..ops.layers import PReLU
 
@@ -348,6 +354,23 @@ def s2d_alt_state_dicts_from_jax(variables: Mapping[str, Any], cfg
     ``Feature``, ``Seg_de``, ``Dep_de``; numpy leaves) → the port's state
     dicts, at ``cfg``'s ``net_g``."""
     return _nets_state_dicts_from_jax(s2d_alt_nets, variables, cfg)
+
+
+def s2d_df_state_dicts_from_jax(variables: Mapping[str, Any], cfg
+                                ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """The JAX S2D_df nets' variables (any of ``G_1``, ``G_2``,
+    ``Dis0_en``, ``Seg_de``, ``Dep_de``; numpy leaves) → the port's state
+    dicts, at ``cfg``'s ``dense_block_config``."""
+    return _nets_state_dicts_from_jax(s2d_df_nets, variables, cfg)
+
+
+def s2d_nd_state_dicts_from_jax(variables: Mapping[str, Any], cfg
+                                ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """The JAX S2D_nd nets' variables (any of ``cfg``'s ``model_names``:
+    ``G_1``, ``G_2``, ``Seg_de``, ``Dep_de`` and ``Dis_en``, or with
+    ``nd_4dis`` ``Dis0_en`` and ``Dis1_en``; numpy leaves) → the port's
+    state dicts, at ``cfg``'s ``dense_block_config``."""
+    return _nets_state_dicts_from_jax(s2d_nd_nets, variables, cfg)
 
 
 def rf_lw_state_dicts_from_jax(variables: Mapping[str, Any], cfg

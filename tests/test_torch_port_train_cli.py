@@ -5,6 +5,7 @@ and resume, its default device, and the flags it leaves out."""
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -222,10 +223,12 @@ def test_s2d_base_generation_flags_parse():
         "6blocks"
 
 
-@pytest.mark.parametrize("model", ["S2D_base", "S2D_alt"])
-def test_s2d_base_generation_train_cli_trains_and_resumes(model, tmp_path):
+def _train_and_resume(extra, tmp_path):
     """Two steps on tiny ``try`` files at 64×192, a save, then a resume
-    with ``--continue_train`` for one more step; the nets load back."""
+    with ``--continue_train`` for one more step; the nets load back.
+    Returns the model the checkpoints were read with and the names of the
+    epoch-2 net files; the checkpoints (about 1 GB with Adam's state) are
+    deleted."""
     from cycle_depth_estimation_tpu_torch.models import create_model
     from cycle_depth_estimation_tpu_torch.utils.weights import load_pth
     from tests.test_torch_port_try_data import write_try_files
@@ -234,9 +237,9 @@ def test_s2d_base_generation_train_cli_trains_and_resumes(model, tmp_path):
     torch.set_num_threads(1)
     try:
         lists = write_try_files(str(tmp_path / "data"), n=2)
-        args = ["--model", model, "--device", "cpu", "--fine_size", "64",
-                "--dense_block_config", "1", "1", "1", "1", "--g1_blocks",
-                "1", "--ndf", "8", "--checkpoints_dir", str(tmp_path / "ck"),
+        args = [*extra, "--device", "cpu", "--fine_size", "64",
+                "--dense_block_config", "1", "1", "1", "1",
+                "--checkpoints_dir", str(tmp_path / "ck"),
                 "--name", "run", "--niter", "1", "--niter_decay", "0",
                 "--save_epoch_freq", "1", "--print_freq", "1",
                 "--display_freq", "2", "--num_threads", "0"]
@@ -261,5 +264,69 @@ def test_s2d_base_generation_train_cli_trains_and_resumes(model, tmp_path):
                 torch.testing.assert_close(t, sd[key], rtol=0, atol=0)
                 torch.testing.assert_close(
                     loaded.nets[name].state_dict()[key], t, rtol=0, atol=0)
+        return m, {p.name for p in expr.glob("2_net_*.pth")}
     finally:
         torch.set_num_threads(n)
+        shutil.rmtree(tmp_path / "ck", ignore_errors=True)
+
+
+@pytest.mark.parametrize("model", ["S2D_base", "S2D_alt"])
+def test_s2d_base_generation_train_cli_trains_and_resumes(model, tmp_path):
+    """Two steps on tiny ``try`` files at 64×192, a save, then a resume
+    with ``--continue_train`` for one more step; the nets load back."""
+    _train_and_resume(["--model", model, "--g1_blocks", "1", "--ndf", "8"],
+                      tmp_path)
+
+
+TWO_TRUNK = {
+    "S2D_df": {"G_1": "GeneralNet2", "G_2": "GeneralNet2",
+               "Dis0_en": "Dis2SegDF", "Seg_de": "SEGDF", "Dep_de": "DEPDF"},
+    "S2D_nd": {"G_1": "GeneralNet2", "G_2": "GeneralNet2",
+               "Dis_en": "DiscriminatorSeg", "Seg_de": "SEG", "Dep_de": "DEP"},
+    "S2D_nd --nd_4dis": {"G_1": "GeneralNet2", "G_2": "GeneralNet2",
+                         "Dis0_en": "Dis2SegDF", "Dis1_en": "Dis2SegDF",
+                         "Seg_de": "SEG", "Dep_de": "DEP"}}
+
+
+@pytest.mark.parametrize("case", list(TWO_TRUNK))
+def test_two_trunk_models_build_their_nets(case):
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    cfg = parse_args(["--model", *case.split(), "--device", "cpu",
+                      "--dense_block_config", "1", "1", "1", "1"])
+    assert (cfg.dataset_mode, cfg.batch_size, cfg.fine_size) == ("try", 1, 192)
+    m = create_model(cfg)
+    state = m.init_state()
+    assert tuple(state.nets) == m.model_names == tuple(TWO_TRUNK[case])
+    assert {k: type(v).__name__ for k, v in state.nets.items()} == \
+        TWO_TRUNK[case]
+    lrs = {k: o.param_groups[0]["lr"] for k, o in state.optimizers.items()}
+    sgd = {k for k, o in state.optimizers.items()
+           if isinstance(o, torch.optim.SGD)}
+    if case == "S2D_df":
+        assert lrs == {"G_1": 2e-4 / 3, "G_2": 2e-4 / 3, "Dis0_en": 4e-5,
+                       "Seg_de": 1e-4, "Dep_de": 1e-4}
+    else:
+        assert lrs == {k: (2e-4 if k in ("Dis0_en", "Dis1_en") else
+                           2e-4 / 3 if k == "Dis_en" else 1e-4)
+                       for k in TWO_TRUNK[case]}
+    assert sgd == ({"Dis_en"} if case == "S2D_nd" else set())
+
+
+def test_two_trunk_flags_parse():
+    cfg = parse_args(["--model", "S2D_df", "--df_adv_w", "5", "--df_g1_adv",
+                      "--df_d_real_w", "0.2"])
+    assert (cfg.df_adv_w, cfg.df_g1_adv, cfg.df_d_real_w) == (5.0, True, 0.2)
+    cfg = parse_args(["--model", "S2D_nd"])
+    assert (cfg.df_adv_w, cfg.df_g1_adv, cfg.df_d_real_w, cfg.nd_4dis) == (
+        2.0, False, 1.0, False)
+    assert parse_args(["--model", "S2D_nd", "--nd_4dis"]).nd_4dis
+
+
+@pytest.mark.parametrize("case", list(TWO_TRUNK))
+def test_two_trunk_train_cli_trains_and_resumes(case, tmp_path):
+    """As the base generation's: two steps, a resume for a third; the
+    checkpoints are the model's ``model_names``."""
+    m, files = _train_and_resume(["--model", *case.split()], tmp_path)
+    assert m.model_names == tuple(TWO_TRUNK[case])
+    assert files == {f"2_net_{k}.pth" for k in TWO_TRUNK[case]}
