@@ -93,17 +93,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    (DenseNet-169 G_2 with growth 32, blocks (6, 12, 32, 32), mid_nc 1024;
    G_1 with 3 dual blocks; R_D; FD1–FD3), 192×576, fp32 with TF32 off. 17b:
    the first step at batch 1 on the card and on the CPU from one init and
-   batch (oneDNN off): at adam_eps 1e-3 the losses within 1e-3 relative,
+   batch (oneDNN off), at adam_eps 1e-3: the losses within 1e-3 relative,
    and each phase again on the card from the CPU's input, its losses
    within 1e-3 and the net it updates by the three checks of the JAX
-   tests' ``_assert_params_close``; at 1e-8 each net's share of
-   sign-flipped first updates. Beside it, the S2D train CLI on
-   vKITTI-sized (1242×375) PNGs in a process of its own, then its resume
-   beside 17c/17d: bf16 and ``--remat`` first steps against fp32 at batch
-   8 (losses within 5e-2, resp. 1e-6; with --remat every BatchNorm moved
-   once; the peak memory of each). 17a:
-   the step timed at batch 1 and 8 (ms, img/s, peak memory) and one
-   profiled step each (idle share, the ten largest kernels). S2D runs no
+   tests' ``_assert_params_close``; each net's share of sign-flipped
+   first updates over the whole step reported. Beside it, the S2D train
+   CLI on vKITTI-sized (1242×375) PNGs in a process of its own, then its
+   resume beside 17c/17d: bf16 and ``--remat`` first steps against fp32
+   at batch 8 (losses within 5e-2, resp. 1e-6; with --remat every
+   BatchNorm moved once; the peak memory of each). 17a: the step timed
+   at batch 1 and 8 (ms, img/s, peak memory) and the batch-1 step
+   profiled (idle share, the ten largest kernels). S2D runs no
    InstanceNorm or epilogue kernel: the phase fails if either count moved.
 
 Every CLI process runs in a session of its own: it fails the phase if a
@@ -115,8 +115,8 @@ Launch counts are zeroed just before phase 3 and read after phase 7 (the
 serving path), before phase 8 and after phase 9 (the training path),
 before phase 10 and after phase 12 (the pix2pix path), and before and
 after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net),
-17, 19 and 20 (S2D and the base and two-trunk generations, where they
-must stay 0) and 18b (rf_lw).
+17, 19, 20 and 21 (S2D and the base, two-trunk and semantic_trans
+generations, where they must stay 0) and 18b (rf_lw).
 18. RefineNet-LW (``--model rf_lw``) at the JAX package's full width
    (ResNetLW-101, four segd heads, 28 + 1 classes), 192×576. 18a (run
    right after phase 1b, with the other kernel checks): both InstanceNorm
@@ -127,7 +127,7 @@ must stay 0) and 18b (rf_lw).
    version) against the plain versions and F.instance_norm, by phase 8's
    yardstick, 8 + 8 launches a step, the unused ``_s`` adapters unmoved;
    an rf_lw7 step and a bf16 step (losses within 5e-2 of fp32); the step
-   timed and profiled at batch 1 and 8. 18c, beside 18b's checks: the
+   timed at batch 1 and 8 and profiled at 8. 18c, beside 18b's checks: the
    train CLI ``--model rf_lw --kitti_gt_dir … --eval_freq 1`` on a
    synthetic try tree for 2 steps (a records line each step, with every
    KITTI metric), then ``save_kitti`` from its ``latest`` checkpoint and
@@ -144,11 +144,11 @@ must stay 0) and 18b (rf_lw).
    CPU's input, its losses within 1e-3 and the nets it updates by the three
    checks; the whole step's sign-flipped first updates reported. 19b: a
    bf16 first step against fp32 (losses within 5e-2). 19c: the step timed
-   at batch 1 and 8 (or, where 8 does not fit, the largest of 4 and 2) and
-   profiled. 19d, beside 19a: ``python -m ...train`` for each model on
-   vKITTI-sized PNGs, two steps, each in a session of its own; the nets
-   load back. Neither model has an InstanceNorm: the kernel counts must not
-   move in phase 19.
+   at batch 1 and 8 (or, where 8 does not fit, the largest of 4 and 2),
+   S2D_base's batch-1 step profiled. 19d, beside 19a: ``python -m
+   ...train`` for each model on vKITTI-sized PNGs, two steps, each in a
+   session of its own; the nets load back. Neither model has an
+   InstanceNorm: the kernel counts must not move in phase 19.
 20. The two-trunk generation, ``--model S2D_df``, ``--model S2D_nd`` and
    ``--model S2D_nd --nd_4dis``, at the JAX package's full width (two
    DenseNet-169 GeneralNet2 trunks; S2D_df: SEGDF, DEPDF and the 512-channel
@@ -163,9 +163,34 @@ must stay 0) and 18b (rf_lw).
    features and the critic's outputs held apart, and reported unpinned
    beside the card's float64 phase and step; 20b bf16 against fp32, each
    loss as the step first computes it and as it ends (S2D_nd's second D
-   phase from the fp32 step's input to it); 20c timed and profiled; 20d
+   phase from the fp32 step's input to it); 20c timed, S2D_df's batch-1
+   step profiled; 20d
    the three train CLIs, two steps each and a resume for a third. No
    InstanceNorm or epilogue launch may happen in phase 20.
+21. The semantic_trans generation, ``--model semantic_trans`` (S2D's nets
+   with the truncated band criterion, the four StarDiscriminator critics,
+   the WGAN-GP penalty on DIS and the clipped Adam of Dis_160/Dis_320)
+   and ``--model semantic_trans_full`` (G_1, a DenseNet-169 GeneralNet,
+   SEG/DEP, the RDepST refiner, Discriminator2Seg and the four critics),
+   at the JAX package's full width, 192×576, fp32 with TF32 off, by phase
+   19's steps: 21a card against CPU with the same penalty alpha and Adam's
+   eps raised to 1e-3 on both sides, the clipped nets' gradient norms and
+   how many of DIS's LeakyReLU inputs the card puts on the other side of 0
+   reported; semantic_trans_full's G_1 phase, whose heads' backward fp32
+   puts 1e-2 from float64 on the card and the CPU alike, held with the
+   gradient at G_1's output taken from the CPU (``GradPins``) and reported
+   unpinned beside the card's float64 phase, and its phase-D losses, which
+   read the earlier updates, reported over the whole step and held from
+   the CPU's input to phase D; 21b bf16 against fp32 (semantic_trans_full's
+   phase D from the fp32 step's input with the features Dis0_en reads
+   taken from the fp32 step, and reported without them); 21c timed at
+   batch 1 and 8 and profiled; 21d both train CLIs, two steps each and a
+   resume for a third.
+   No InstanceNorm or epilogue launch may happen in phase 21.
+
+Phases 17a, 18b, 19c and 20c profile one step each (17a, 19c and 20c
+their first model's batch-1 step, 18b its batch-8 step); 21c profiles
+both batches of both models.
 
 The last three lines
 are a JSON object with every kernel's numbers, the card's name and power
@@ -427,13 +452,18 @@ def running(field, value):
     return found
 
 
-def start_cli(module, args):
+def start_cli(module, args, threads=2):
     """``python -m <module> <args>`` in a session of its own (so every
-    process it starts can be found), its output to a temporary file."""
+    process it starts can be found), its output to a temporary file, with
+    ``threads`` intra-op threads (the CLIs run beside this process's CPU
+    work; None: torch's default)."""
     out = tempfile.TemporaryFile("w+")
+    env = dict(os.environ)
+    if threads is not None:
+        env["OMP_NUM_THREADS"] = str(threads)
     proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT,
                             stdout=out, stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+                            start_new_session=True, env=env)
     return {"proc": proc, "out": out, "t": time.perf_counter()}
 
 
@@ -2124,7 +2154,9 @@ def s2d_config(**kw):
 def s2d_batch(n, seed=11, size=None):
     """A seeded ``try`` batch on the CPU at ``size`` (H, W; default S2D's):
     images in [-1, 1], 28-class labels with a band of sky (class 17) in the
-    synthetic ones, depth in [-1, 1] and ±1 bands."""
+    synthetic ones, depth in [-1, 1], ±1 bands and 0/1 label-edge maps (1
+    on a tenth of the pixels; drawn last, so the rest is what it was
+    without them)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -2136,7 +2168,9 @@ def s2d_batch(n, seed=11, size=None):
             "seg_l_syn": seg,
             "seg_l_real": torch.randint(0, 28, (n, h, w), generator=g),
             "dep_l_syn": torch.rand(n, 1, h, w, generator=g) * 2 - 1,
-            "depth_l_s": torch.randn(n, 4, h, w, generator=g).sign()}
+            "depth_l_s": torch.randn(n, 4, h, w, generator=g).sign(),
+            **{f"seg_e_{d}": (torch.rand(n, 1, h, w, generator=g) > 0.9)
+               .float() for d in ("syn", "real")}}
 
 
 def on(batch, device):
@@ -2208,94 +2242,87 @@ def s2d_flip_shares(p0, a, b, names=S2D_NETS):
 
 def phase_s2d_card_vs_cpu():
     """Phase 17b: the first full-width S2D step (batch 1) on the card and on
-    the CPU (oneDNN off) from one init and batch. At adam_eps 1e-3 the whole
-    step's losses within 1e-3 relative; then each phase again on the card
+    the CPU (oneDNN off) from one init and batch, at adam_eps 1e-3: the
+    whole step's losses within 1e-3 relative, each net's share of first
+    updates whose sign differs reported; then each phase again on the card
     from the CPU's state and carried tensors before it: its losses within
-    1e-3 and the parameters of the net it updates by the three checks. At
-    the default 1e-8, each net's share of first updates whose sign differs
-    over the whole step. (Over the whole step the parameters are reported,
-    not held: from one state, fp32 puts the G_1 gradient of the g1 phase
-    2.5 % (card) and 1.9 % (CPU) from a float64 one in L2, and G_2's
-    rounding before it moves that further.)"""
+    1e-3 and the parameters of the net it updates by the three checks.
+    (Over the whole step the parameters are reported, not held: from one
+    state, fp32 puts the G_1 gradient of the g1 phase 2.5 % (card) and 1.9
+    % (CPU) from a float64 one in L2, and G_2's rounding before it moves
+    that further.)"""
     import torch
 
     from cycle_depth_estimation_tpu_torch.models import create_model
 
     batch = s2d_batch(1)
     threads = torch.get_num_threads()
-    shares = {}
-    for eps in (1e-3, 1e-8):
-        t = time.perf_counter()
-        with torch.backends.mkldnn.flags(enabled=False):
-            cpu_model = create_model(s2d_config(device="cpu", adam_eps=eps))
-            cpu_state = cpu_model.init_state()
-            p0 = s2d_params(cpu_state)
-            ctx = cpu_model._ctx(batch)
-            snaps = []
-            for _, phase in cpu_model.PHASES:
-                snaps.append(s2d_snapshot(cpu_state, ctx))
-                phase(cpu_model, cpu_state, ctx)
+    eps = 1e-3
+    t = time.perf_counter()
+    with torch.backends.mkldnn.flags(enabled=False):
+        cpu_model = create_model(s2d_config(device="cpu", adam_eps=eps))
+        cpu_state = cpu_model.init_state()
+        p0 = s2d_params(cpu_state)
+        ctx = cpu_model._ctx(batch)
+        snaps = []
+        for _, phase in cpu_model.PHASES:
             snaps.append(s2d_snapshot(cpu_state, ctx))
-        m_cpu = {k: float(v) for k, v in ctx["metrics"].items()}
-        cpu_after = s2d_params(cpu_state)
-        del cpu_model, cpu_state, ctx
-        cpu_s = time.perf_counter() - t
-        model = create_model(s2d_config(adam_eps=eps))
-        state = model.init_state()
-        state, m = model.train_step(state, on(batch, "cuda"))
-        m_card = {k: float(v) for k, v in m.items()}
-        card_after = s2d_params(state)
-        flips = s2d_flip_shares(p0, card_after, cpu_after)
-        rel = rel_loss_diffs(m_card, m_cpu)
-        log(f"phase 17b: adam_eps {eps:g}: whole step, card vs CPU ({threads}"
-            f" threads, {cpu_s:.1f} s) first-step losses, relative: "
-            + " ".join(f"{k} {v:.1e}" for k, v in rel.items()))
-        if not all(math.isfinite(v) for v in (*m_card.values(),
-                                              *m_cpu.values())):
-            raise AssertionError(f"S2D losses: card {m_card}, CPU {m_cpu}")
-        if eps == 1e-8:
-            shares = flips
-            log("phase 17b: adam_eps 1e-8: sign-flipped first updates, card "
-                "vs CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in
-                                       flips.items()))
-            break
-        losses = [k for k in m_card if not k.startswith("acc")]
-        bad = {k: rel[k] for k in losses if rel[k] > S2D_CPU_LOSS_REL}
-        for name in S2D_NETS:
-            nums = s2d_params_close(card_after[name], cpu_after[name],
-                                    model.cfg.lr / S2D_LR_DIVISOR[name])[1]
-            log(f"phase 17b:   whole step {name}: " + ", ".join(
-                f"{k} {v:.3g}" for k, v in nums.items())
-                + f"; sign-flipped updates {flips[name]:.2e}")
-        for i, (pname, phase) in enumerate(model.PHASES):
-            (nets, opts, pre), (nets_after, _, post) = snaps[i], snaps[i + 1]
-            for k, net in state.nets.items():
-                net.load_state_dict(nets[k])
-                state.optimizers[k].load_state_dict(opts[k])
-            cctx = s2d_snapshot(state, pre, "cuda")[2]
-            phase(model, state, cctx)
-            got = {k: float(v) for k, v in cctx["metrics"].items()
-                   if k not in pre["metrics"]}
-            prel = rel_loss_diffs(got, {k: float(post["metrics"][k])
-                                        for k in got})
-            bad.update({f"{pname}:{k}": v for k, v in prel.items()
-                        if not k.startswith("acc") and v > S2D_CPU_LOSS_REL})
-            after = s2d_params(state)
-            for name in S2D_UPDATES[pname]:
-                ok, nums = s2d_params_close(
-                    after[name], {n: nets_after[name][n] for n in after[name]},
-                    model.cfg.lr / S2D_LR_DIVISOR[name])
-                log(f"phase 17b:   phase {pname} from the CPU's input, "
-                    f"{name}: losses " + " ".join(
-                        f"{k} {v:.1e}" for k, v in prel.items()) + "; "
-                    + ", ".join(f"{k} {v:.3g}" for k, v in nums.items()))
-                if not ok:
-                    bad[f"{pname}:{name}"] = nums
-        del model, state
-        torch.cuda.empty_cache()
-        if bad:
-            raise AssertionError(f"S2D card vs CPU at adam_eps 1e-3: {bad}")
-    return shares
+            phase(cpu_model, cpu_state, ctx)
+        snaps.append(s2d_snapshot(cpu_state, ctx))
+    m_cpu = {k: float(v) for k, v in ctx["metrics"].items()}
+    cpu_after = s2d_params(cpu_state)
+    del cpu_model, cpu_state, ctx
+    cpu_s = time.perf_counter() - t
+    model = create_model(s2d_config(adam_eps=eps))
+    state = model.init_state()
+    state, m = model.train_step(state, on(batch, "cuda"))
+    m_card = {k: float(v) for k, v in m.items()}
+    card_after = s2d_params(state)
+    flips = s2d_flip_shares(p0, card_after, cpu_after)
+    rel = rel_loss_diffs(m_card, m_cpu)
+    log(f"phase 17b: adam_eps {eps:g}: whole step, card vs CPU ({threads}"
+        f" threads, {cpu_s:.1f} s) first-step losses, relative: "
+        + " ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+    if not all(math.isfinite(v) for v in (*m_card.values(),
+                                          *m_cpu.values())):
+        raise AssertionError(f"S2D losses: card {m_card}, CPU {m_cpu}")
+    losses = [k for k in m_card if not k.startswith("acc")]
+    bad = {k: rel[k] for k in losses if rel[k] > S2D_CPU_LOSS_REL}
+    for name in S2D_NETS:
+        nums = s2d_params_close(card_after[name], cpu_after[name],
+                                model.cfg.lr / S2D_LR_DIVISOR[name])[1]
+        log(f"phase 17b:   whole step {name}: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in nums.items())
+            + f"; sign-flipped updates {flips[name]:.2e}")
+    for i, (pname, phase) in enumerate(model.PHASES):
+        (nets, opts, pre), (nets_after, _, post) = snaps[i], snaps[i + 1]
+        for k, net in state.nets.items():
+            net.load_state_dict(nets[k])
+            state.optimizers[k].load_state_dict(opts[k])
+        cctx = s2d_snapshot(state, pre, "cuda")[2]
+        phase(model, state, cctx)
+        got = {k: float(v) for k, v in cctx["metrics"].items()
+               if k not in pre["metrics"]}
+        prel = rel_loss_diffs(got, {k: float(post["metrics"][k])
+                                    for k in got})
+        bad.update({f"{pname}:{k}": v for k, v in prel.items()
+                    if not k.startswith("acc") and v > S2D_CPU_LOSS_REL})
+        after = s2d_params(state)
+        for name in S2D_UPDATES[pname]:
+            ok, nums = s2d_params_close(
+                after[name], {n: nets_after[name][n] for n in after[name]},
+                model.cfg.lr / S2D_LR_DIVISOR[name])
+            log(f"phase 17b:   phase {pname} from the CPU's input, "
+                f"{name}: losses " + " ".join(
+                    f"{k} {v:.1e}" for k, v in prel.items()) + "; "
+                + ", ".join(f"{k} {v:.3g}" for k, v in nums.items()))
+            if not ok:
+                bad[f"{pname}:{name}"] = nums
+    del model, state
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"S2D card vs CPU at adam_eps 1e-3: {bad}")
+    return flips
 
 
 def phase_s2d_compare(batch):
@@ -2477,7 +2504,7 @@ def phase_s2d():
     finally:
         if "resume" in cli:
             end_s2d_resume(cli)
-    out = {"flips_eps_1e-8": flips, **peaks}
+    out = {"flips": flips, **peaks}
     for n in S2D_BATCHES:
         batch = b8 if n == S2D_BATCHES[-1] else on(s2d_batch(n), "cuda")
         model = create_model(s2d_config())
@@ -2486,7 +2513,8 @@ def phase_s2d():
         log(f"phase 17a: S2D train step bs{n} {S2D_H}x{S2D_W} fp32 (TF32 "
             f"off): {dt * 1e3:.1f} ms/step = {n / dt:.2f} img/s; peak memory "
             f"{peak / 2 ** 30:.2f} GiB")
-        profile_step(f"phase 17a bs{n}", model, state, batch)
+        if n == S2D_BATCHES[0]:
+            profile_step(f"phase 17a bs{n}", model, state, batch)
         out[f"bs{n}"] = {"ms": dt * 1e3, "img_s": n / dt, "peak": peak}
         del model, state, batch
         torch.cuda.empty_cache()
@@ -2887,8 +2915,9 @@ def phase_rf_lw(cli):
             + ", ".join(f"{k} {v / 1e9:.1f} GFLOP" for k, v in flops.items())
             + f"; {params / 1e6:.1f} M parameters) = "
             f"{total / dt / 1e12:.1f} TFLOP/s")
-        profile_step(f"phase 18b bs{n}", model, state, batches[n],
-                     rf_shapes(n))
+        if n == RF_BATCHES[-1]:
+            profile_step(f"phase 18b bs{n}", model, state, batches[n],
+                         rf_shapes(n))
         out[f"bs{n}"] = {"ms": dt * 1e3, "img_s": n / dt, "peak": peak}
         del model, state
         torch.cuda.empty_cache()
@@ -2896,14 +2925,16 @@ def phase_rf_lw(cli):
     return out
 
 
-# The base my_seg_depth generation (S2D_base, S2D_alt; phase 19) and the
-# two-trunk one (S2D_df, S2D_nd and S2D_nd --nd_4dis; phase 20) at the try
-# size: the nets each phase of a step updates, and how many Dis_en forwards
-# draw dropout masks in a step
+# The base my_seg_depth generation (S2D_base, S2D_alt; phase 19), the
+# two-trunk one (S2D_df, S2D_nd and S2D_nd --nd_4dis; phase 20) and the
+# semantic_trans one (semantic_trans, semantic_trans_full; phase 21) at the
+# try size: the nets each phase of a step updates, and how many Dis_en
+# forwards draw dropout masks in a step
 BASE_MODELS = ("S2D_base", "S2D_alt")
 TWO_TRUNK = ("S2D_df", "S2D_nd", "S2D_nd_4dis")
-BASE_TAG = {**dict.fromkeys(BASE_MODELS, "19"), **dict.fromkeys(TWO_TRUNK,
-                                                                 "20")}
+ST_MODELS = ("semantic_trans", "semantic_trans_full")
+BASE_TAG = {**dict.fromkeys(BASE_MODELS, "19"),
+            **dict.fromkeys(TWO_TRUNK, "20"), **dict.fromkeys(ST_MODELS, "21")}
 BASE_CASES = {"S2D_nd_4dis": {"model": "S2D_nd", "nd_4dis": True}}
 BASE_H, BASE_W = S2D_H, S2D_W
 BASE_WIDTHS = {k: {} for k in BASE_TAG}  # overrides; empty: full width
@@ -2922,7 +2953,12 @@ BASE_UPDATES = {
                "Seg": ("Seg_de",), "Dep": ("Dep_de",), "D2": ("Dis_en",)},
     "S2D_nd_4dis": {"D1": ("Dis0_en", "Dis1_en"), "G_1": ("G_1",),
                     "G_2": ("G_2",), "Seg": ("Seg_de",), "Dep": ("Dep_de",),
-                    "D2": ("Dis0_en", "Dis1_en")}}
+                    "D2": ("Dis0_en", "Dis1_en")},
+    "semantic_trans": {**S2D_UPDATES, "post": ("DIS", "Dis_160", "Dis_320")},
+    "semantic_trans_full": {"G_1": ("G_1",), "G_2": ("G_2",),
+                            "Seg": ("Seg_de",), "Dep": ("Dep_de",),
+                            "R_D_real": ("R_D",), "R_D_syn": ("R_D",),
+                            "D": ("Dis0_en", "DIS", "Dis_160", "Dis_320")}}
 BASE_DRAWS = {"S2D_base": 3, "S2D_alt": 4}
 BASE_CHECK_EPS = 1e-3  # 19a's Adam eps on both sides (the models' is 1e-8)
 # S2D_nd's critic (model2's DiscriminatorSeg) is piecewise linear (a
@@ -2950,8 +2986,45 @@ PIN_OUT_REL = 1e-4  # the critic's outputs, card vs CPU, of the largest
 # ``BASE_SEEDS`` (the pinned step holds them); 20b holds the second D
 # phase from the fp32 step's input to it and reports its losses' end
 # values (G_2's losses are computed once and held).
-BASE_REPORTED = {"S2D_nd": ("G_2", "G2_dis", "D_syn", "D_real", "gp")}
+BASE_REPORTED = {"S2D_nd": ("G_2", "G2_dis", "D_syn", "D_real", "gp"),
+                 # semantic_trans_full's phase D reads G_1, G_2 and Seg_de
+                 # after their updates (Dis0_en's D_real, D_syn) and R_D's
+                 # depth after R_D's (DIS's DEP_syn: its outputs on the
+                 # synthetic pair are near 0 and the loss ~1e-8, 1e-3 apart
+                 # CPU against CPU with oneDNN on and off); 21a holds them
+                 # from the CPU's input to phase D
+                 "semantic_trans_full": ("D_real", "D_syn", "DEP_syn")}
 BASE_SEEDS = {"S2D_nd": (0, 1)}  # 20a's whole step: model seed (batch: 17+)
+# The phase of a semantic_trans model whose DIS (LeakyReLU all the way, its
+# penalty a double backward through it in semantic_trans) reads R_D's
+# depth: 21a records the signs of DIS's LeakyReLU inputs in that phase on
+# the CPU and reports how many the card's run of it from the CPU's input
+# puts on the other side of 0.
+BASE_SIGNS = {"semantic_trans": ("post", "DIS"),
+              "semantic_trans_full": ("D", "DIS")}
+# semantic_trans_full's G_1 phase reaches G_1 through G_2, SEG and
+# Dis0_en, whose fp32 backward is ill-conditioned on both sides: the
+# card's own gradient at G_1's output lies 4.1e-2 of the largest from the
+# CPU's, its update puts 3.5e-3 of G_1 past lr from the CPU's, and the
+# card's float64 phase is 2.1e-3 past lr from the CPU's update and 3.7e-3
+# from the card's; from the CPU's gradient at G_1's output the card's
+# update is 1.6e-6 past lr (measured on one H100). 21a holds that
+# phase with the gradient at the output of the net named here taken from
+# the CPU (``GradPins``), and reports it unpinned beside the card's
+# float64 phase.
+BASE_GRAD_PINS = {"semantic_trans_full": {"G_1": "G_1"}}
+# In bf16 the same heads (Dis0_en: 1×1 convs, each LeakyReLU then
+# BatchNorm) turn the rounding of G_1's and G_2's fresh bf16 forwards in
+# semantic_trans_full's phase D into 5.4e-2 of D_syn (measured on one
+# H100): 21b holds that phase from the fp32 step's input with the features
+# Seg_de hands Dis0_en there taken from the fp32 step (``CriticPins``'
+# feature feed), and reports it without them.
+BASE_BF16_FED = {"semantic_trans_full": ("Seg_de",)}
+# The timed steps that are also profiled (idle share, top kernels): the
+# batch-1 step of the first model of phases 19 and 20, and both batches of
+# phase 21's models; phases 17 and 18 profile one each.
+BASE_PROFILED = {("S2D_base", 1), ("S2D_df", 1),
+                 *((m, n) for m in ST_MODELS for n in BASE_BATCHES)}
 
 
 def base_case(name):
@@ -3086,6 +3159,51 @@ class CriticPins:
                                  "sign maps left")
 
 
+class GradPins:
+    """The gradient that reaches a net's output in a phase, recorded on
+    the CPU under a key (``record(key, net)``) and replayed on the card
+    (``replay(key, net, pin)``): with ``pin`` the card's backward goes on
+    from the recorded gradient. ``seen["grad"]``: the largest distance of
+    the card's own gradient there from the recorded one, over the
+    largest."""
+
+    def __init__(self):
+        self.grads, self.seen = {}, None
+
+    @staticmethod
+    @contextmanager
+    def _hooked(net, on_grad):
+        def forward(module, args, out):
+            if out.requires_grad:
+                out.register_hook(on_grad)
+
+        handle = net.register_forward_hook(forward)
+        try:
+            yield
+        finally:
+            handle.remove()
+
+    def record(self, key, net):
+        rec = self.grads.setdefault(key, [])
+        return self._hooked(net, lambda g: rec.append(g.detach().float()
+                                                      .cpu()))
+
+    @contextmanager
+    def replay(self, key, net, pin):
+        feed = list(self.grads[key])
+        seen = self.seen = {"grad": 0.0}
+
+        def on_grad(g):
+            ref = feed.pop(0)
+            seen["grad"] = max(seen["grad"], out_distance(g, ref))
+            return ref.to(g.device, g.dtype) if pin else None
+
+        with self._hooked(net, on_grad):
+            yield
+        if feed:
+            raise AssertionError(f"{len(feed)} recorded gradients left")
+
+
 def clamped(p):
     """Where the BCE's clamp stops an output."""
     return (p < 1e-7) | (p > 1.0 - 1e-7)
@@ -3138,7 +3256,7 @@ def as_float64(ctx):
 
 def float64_phase(model, state64, nets, opts, pre, phase):
     """``phase`` in float64 on the card from a snapshot (``nets``,
-    ``opts``, carried ``pre``): ``state64`` is ``float64_step``'s. Returns
+    ``opts``, carried ``pre``): ``state64`` is ``float64_state``'s. Returns
     the parameters after it on the CPU."""
     for k, net in state64.nets.items():
         net.load_state_dict(nets[k])
@@ -3147,18 +3265,24 @@ def float64_phase(model, state64, nets, opts, pre, phase):
     return s2d_params(state64)
 
 
-def float64_step(model, batch, pins=None):
-    """The model's first step in float64 on the card from its seed (CE and
-    L1 stay fp32 reductions), Adam's eps at ``BASE_CHECK_EPS``, its BCE
-    calls recorded in ``pins`` (a ``CriticPins``) under "step": (its
-    losses, the float64 state)."""
+def float64_state(model):
+    """The model's init in float64 on the card, in train mode, Adam's eps
+    at ``BASE_CHECK_EPS``."""
     state = model.init_state()
     for net in state.nets.values():
         net.double().train()
     state.optimizers = {k: model._optimizer(k, state.nets[k].parameters())
                         for k in model.model_names}
-    with_eps(state, BASE_CHECK_EPS)
-    ctx = as_float64(model._ctx(state, on(batch, "cuda")))
+    return with_eps(state, BASE_CHECK_EPS)
+
+
+def float64_step(model, batch, pins=None):
+    """The model's first step in float64 on the card from its seed (CE and
+    L1 stay fp32 reductions), Adam's eps at ``BASE_CHECK_EPS``, its BCE
+    calls recorded in ``pins`` (a ``CriticPins``) under "step": (its
+    losses, the float64 state)."""
+    state = float64_state(model)
+    ctx = as_float64(model._ctx(state=state, batch=on(batch, "cuda")))
     with (pins.record("step") if pins else contextlib.nullcontext()):
         for _, phase in model.PHASES:
             phase(model, state, ctx)
@@ -3179,6 +3303,24 @@ def base_params_close(got, want, before, lr, sgd):
     return err <= 1e-3 * upd, {"max_over_update": err / upd}
 
 
+@contextmanager
+def recorded_clips(norms):
+    """Each gradient norm the train steps' ``clip_grad_global_norm_`` sees,
+    appended to ``norms``."""
+    from cycle_depth_estimation_tpu_torch.models import s2d, s2d_base
+
+    clip = s2d.clip_grad_global_norm_
+
+    def recorded(params, max_norm):
+        norm = clip(params, max_norm)
+        norms.append(float(norm))
+        return norm
+
+    with mock.patch.object(s2d, "clip_grad_global_norm_", recorded), \
+            mock.patch.object(s2d_base, "clip_grad_global_norm_", recorded):
+        yield
+
+
 def base_first_step(name, seed=0):
     """20a's whole first step of ``name`` at model seed ``seed`` and batch
     seed 17 + ``seed``, batch 1, Adam's eps at ``BASE_CHECK_EPS``, on the
@@ -3193,14 +3335,17 @@ def base_first_step(name, seed=0):
 
     tag = f"phase {BASE_TAG[name]}a {name}" + (f" seed {seed}" if seed
                                                else "")
-    pins = CriticPins() if name in BASE_PINNED else None
+    is_pinned = name in BASE_PINNED
+    pins = CriticPins() if is_pinned or name in BASE_SIGNS else None
+    grads = GradPins()
+    clip_norms = {"CPU": [], "card": []}
     batch = s2d_batch(1, seed=17 + seed, size=(BASE_H, BASE_W))
     t = time.perf_counter()
     with torch.backends.mkldnn.flags(enabled=False):
         cpu_model = create_model(base_config(name, device="cpu", seed=seed))
         cpu_state = with_eps(cpu_model.init_state(), BASE_CHECK_EPS)
         p0 = s2d_params(cpu_state)
-        ctx = cpu_model._ctx(cpu_state, batch)
+        ctx = cpu_model._ctx(state=cpu_state, batch=batch)
         feed = None
         if "masks" in ctx:
             draw = ctx["masks"]
@@ -3211,9 +3356,18 @@ def base_first_step(name, seed=0):
         snaps = []
         for pname, phase in cpu_model.PHASES:
             snaps.append(base_snapshot(cpu_state, ctx))
-            with (pins.record(pname, [cpu_state.nets[k] for k in TRUNKS],
-                              cpu_state.nets["Dis_en"])
-                  if pins else contextlib.nullcontext()):
+            if is_pinned:
+                rec = pins.record(pname, [cpu_state.nets[k] for k in TRUNKS],
+                                  cpu_state.nets["Dis_en"])
+            elif BASE_SIGNS.get(name, ("",))[0] == pname:
+                rec = pins.record(pname, (),
+                                  cpu_state.nets[BASE_SIGNS[name][1]])
+            else:
+                rec = contextlib.nullcontext()
+            grad_net = BASE_GRAD_PINS.get(name, {}).get(pname)
+            with rec, recorded_clips(clip_norms["CPU"]), (
+                    grads.record(pname, cpu_state.nets[grad_net]) if grad_net
+                    else contextlib.nullcontext()):
                 phase(cpu_model, cpu_state, ctx)
         snaps.append(base_snapshot(cpu_state, ctx))
     if feed is not None and feed.i != BASE_DRAWS[name]:
@@ -3225,7 +3379,9 @@ def base_first_step(name, seed=0):
     model = create_model(base_config(name, seed=seed))
     state = with_eps(model.init_state(), BASE_CHECK_EPS)
     card_pins = CriticPins()
-    with (card_pins.record("step") if pins else contextlib.nullcontext()):
+    with (card_pins.record("step") if is_pinned
+          else contextlib.nullcontext()), \
+            recorded_clips(clip_norms["card"]):
         state, m = model.train_step(state, on(batch, "cuda"))
     m_card = {k: float(v) for k, v in m.items()}
     card_after = s2d_params(state)
@@ -3233,6 +3389,11 @@ def base_first_step(name, seed=0):
     log(f"{tag}: adam_eps {BASE_CHECK_EPS:g}: whole step, card vs CPU "
         f"({cpu_s:.1f} s) first-step losses, relative: "
         + " ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+    if clip_norms["CPU"]:
+        log(f"{tag}:   the clipped nets' gradient norms before the clip "
+            f"({', '.join(model.clip_norms)}): " + "; ".join(
+                f"{who} " + ", ".join(f"{v:.4g}" for v in norms)
+                for who, norms in clip_norms.items()))
     if not all(math.isfinite(v) for v in (*m_card.values(),
                                           *m_cpu.values())):
         raise AssertionError(f"{name} losses: card {m_card}, CPU {m_cpu}")
@@ -3249,8 +3410,9 @@ def base_first_step(name, seed=0):
                                        lrs[net], net in sgd)[1]
                 for net in model.model_names}
 
-    flips64 = state64 = None
-    if pins is not None:
+    flips64 = None
+    state64 = float64_state(model) if name in BASE_GRAD_PINS else None
+    if is_pinned:
         pins64 = CriticPins()
         m64, state64 = float64_step(model, batch, pins64)
         flips64 = s2d_flip_shares(p0, card_after, s2d_params(state64),
@@ -3289,12 +3451,12 @@ def base_first_step(name, seed=0):
                 "" if flips64 is None else
                 f" (card fp32 vs float64 {flips64[net]:.2e})"))
     return dict(model=model, state=state, state64=state64, snaps=snaps,
-                feed=feed, pins=pins, lrs=lrs, out=out, bad=bad)
+                feed=feed, pins=pins, grads=grads, lrs=lrs, out=out, bad=bad)
 
 
 def phase_base_card_vs_cpu(name):
-    """Phase 19a (20a) for ``name``: the first batch-1 step on the card and
-    on the CPU (oneDNN off) from one seed, with the same Dis_en masks and
+    """Phase 19a (20a, 21a) for ``name``: the first batch-1 step on the card
+    and on the CPU (oneDNN off) from one seed, with the same Dis_en masks and
     penalty alphas (drawn on the CPU from the seed and the step) and
     Adam's eps raised to 1e-3 on both sides, as phase 17b does (at the
     models' 1e-8 the first update is lr·sign(g), and rounding-sized
@@ -3302,10 +3464,11 @@ def phase_base_card_vs_cpu(name):
     whole step's losses within 1e-3 relative (``base_first_step``, at each
     of ``BASE_SEEDS``); then each phase again on the card from the CPU's
     state, carried tensors and masks before it: its losses within 1e-3 and
-    the nets it updates by ``base_params_close``; a ``BASE_PINNED`` phase
-    pinned, as the comment there says. Over the whole step the parameter
-    distances and sign-flipped first updates are reported, not held: a
-    later phase reads an earlier one's updated weights."""
+    the nets it updates by ``base_params_close``; a ``BASE_PINNED`` or
+    ``BASE_GRAD_PINS`` phase pinned, as the comments there say. Over the
+    whole step the parameter distances and sign-flipped first updates are
+    reported, not held: a later phase reads an earlier one's updated
+    weights."""
     import torch
 
     tag = f"phase {BASE_TAG[name]}a {name}"
@@ -3316,9 +3479,9 @@ def phase_base_card_vs_cpu(name):
         bad.update({f"seed {seed} {k}": v for k, v in more["bad"].items()})
         del more
         torch.cuda.empty_cache()
-    model, state, state64, snaps, feed, pins, lrs = (
+    model, state, state64, snaps, feed, pins, grads, lrs = (
         first[k] for k in ("model", "state", "state64", "snaps", "feed",
-                           "pins", "lrs"))
+                           "pins", "grads", "lrs"))
     sgd = {k for k, o in state.optimizers.items()
            if isinstance(o, torch.optim.SGD)}
 
@@ -3331,22 +3494,32 @@ def phase_base_card_vs_cpu(name):
         cctx = copied(pre, "cuda")
         if at is not None:
             cctx["masks"] = feed.at(at, "cuda")
-        if pin is None:
+        signs = BASE_SIGNS.get(name, ("",))[0] == pname
+        grad_net = BASE_GRAD_PINS.get(name, {}).get(pname)
+        seen = None
+        if grad_net is not None:
+            with grads.replay(pname, state.nets[grad_net], pin):
+                phase(model, state, cctx)
+            seen = grads.seen
+        elif pin is None and not signs:
             phase(model, state, cctx)
         else:
             fed = [state.nets[k] for k in TRUNKS
                    if pname in BASE_FED.get(name, ())]
-            with pins.replay((pname,), fed, state.nets["Dis_en"], pin):
+            critic = BASE_SIGNS[name][1] if signs else "Dis_en"
+            with pins.replay((pname,), fed, state.nets[critic], bool(pin)):
                 phase(model, state, cctx)
+            seen = pins.seen
         got = {k: float(v) for k, v in cctx["metrics"].items()
                if k not in pre["metrics"] or float(v) != float(
                    pre["metrics"][k])}
-        return got, s2d_params(state), None if pin is None else pins.seen
+        return got, s2d_params(state), seen
 
     for i, (pname, phase) in enumerate(model.PHASES):
         (nets, opts, pre, at), (nets_after, _, post, _) = (snaps[i],
                                                           snaps[i + 1])
-        pinned = pname in BASE_PINNED.get(name, ())
+        grad_net = BASE_GRAD_PINS.get(name, {}).get(pname)
+        pinned = pname in BASE_PINNED.get(name, ()) or grad_net is not None
         runs = {"": on_card(phase, pname, pre, at, nets, opts,
                             False if pinned else None)}
         if pinned:
@@ -3364,9 +3537,17 @@ def phase_base_card_vs_cpu(name):
                                              lrs[net], net in sgd)
                 held = kind or not pinned
                 extra = ""
-                if pinned:
+                if grad_net is not None:
+                    extra = (f"; the gradient at {grad_net}'s output "
+                             f"{seen['grad']:.1e} of the largest from the "
+                             "CPU's")
+                elif pinned:
                     extra = f"; {pins_said(seen)}"
-                if kind:
+                elif seen is not None:
+                    extra = (f"; {seen['relu']} of {BASE_SIGNS[name][1]}'s "
+                             "LeakyReLU inputs on the other side of 0 from "
+                             "the CPU's")
+                if kind and grad_net is None:
                     ok = ok and max(seen["outputs"], seen["feats"] or 0.0
                                     ) <= PIN_OUT_REL
                 elif pinned:
@@ -3393,12 +3574,15 @@ def phase_base_card_vs_cpu(name):
 
 
 def phase_base_bf16(name):
-    """Phase 19b (20b) for ``name``: the first bf16 step against the fp32
-    one from one seed and batch (``BASE_BF16_BATCH``), all losses finite
-    and within 5e-2 relative, both as the step first computes each (the
-    D losses of S2D_nd's first D phase, from the init) and as it ends; the
-    end value of a ``BASE_REPORTED`` loss is reported, and the phase that
-    last computes it is held from the fp32 step's input to it instead."""
+    """Phase 19b (20b, 21b) for ``name``: the first bf16 step against the
+    fp32 one from one seed and batch (``BASE_BF16_BATCH``), all losses
+    finite and within 5e-2 relative, both as the step first computes each
+    (the D losses of S2D_nd's first D phase, from the init) and as it
+    ends; the end value of a ``BASE_REPORTED`` loss (and its only value,
+    where the last phase first computes it) is reported, and the last
+    phase is held from the fp32 step's input to it instead: for a model
+    of ``BASE_BF16_FED`` with the features its nets there give the critic
+    taken from the fp32 step, and reported without them."""
     import torch
 
     from cycle_depth_estimation_tpu_torch.models import create_model
@@ -3406,7 +3590,9 @@ def phase_base_bf16(name):
     batch = on(s2d_batch(BASE_BF16_BATCH, seed=19, size=(BASE_H, BASE_W)),
                "cuda")
     reported = BASE_REPORTED.get(name, ())
-    runs, snap = {}, None
+    fed = BASE_BF16_FED.get(name, ())
+    pins = CriticPins()
+    runs, snap, fresh = {}, None, set()
     for dtype in ("float32", "bfloat16"):
         model = create_model(base_config(name, dtype=dtype))
         state = model.init_state()
@@ -3414,11 +3600,15 @@ def phase_base_bf16(name):
         torch.cuda.reset_peak_memory_stats()
         for net in state.nets.values():
             net.train()
-        ctx, first = model._ctx(state, batch), {}
+        ctx, first = model._ctx(state=state, batch=batch), {}
         for i, (_, phase) in enumerate(model.PHASES):
-            if reported and dtype == "float32" and i == len(model.PHASES) - 1:
+            last = (reported and dtype == "float32"
+                    and i == len(model.PHASES) - 1)
+            if last:
                 snap = s2d_snapshot(state, ctx, "cuda")
-            phase(model, state, ctx)
+            with (pins.record("last", [state.nets[k] for k in fed])
+                  if last and fed else contextlib.nullcontext()):
+                phase(model, state, ctx)
             for k, v in ctx["metrics"].items():
                 first.setdefault(k, float(v))
         torch.cuda.synchronize()
@@ -3426,13 +3616,19 @@ def phase_base_bf16(name):
                                ctx["metrics"].items()},
                        torch.cuda.max_memory_allocated())
         if snap is not None and dtype == "bfloat16":
-            for k, net in state.nets.items():
-                net.load_state_dict(snap[0][k])
-                state.optimizers[k].load_state_dict(snap[1][k])
             before = {k: float(v) for k, v in snap[2]["metrics"].items()}
-            model.PHASES[-1][1](model, state, snap[2])
-            runs["last"] = {k: float(v) for k, v in snap[2]["metrics"].items()
-                            if k in reported and float(v) != before[k]}
+            fresh = {k for k in reported if k not in before}
+            for kind in ("unfed", "last") if fed else ("last",):
+                for k, net in state.nets.items():
+                    net.load_state_dict(snap[0][k])
+                    state.optimizers[k].load_state_dict(snap[1][k])
+                cctx = copied(snap[2], "cuda")
+                feeding = kind == "last" and fed
+                with (pins.replay(["last"], [state.nets[k] for k in fed])
+                      if feeding else contextlib.nullcontext()):
+                    model.PHASES[-1][1](model, state, cctx)
+                runs[kind] = {k: float(v) for k, v in cctx["metrics"].items()
+                              if k in reported and float(v) != before.get(k)}
         del model, state, ctx
         torch.cuda.empty_cache()
     (f32, m32, pk32), (f16, m16, pk16) = runs["float32"], runs["bfloat16"]
@@ -3441,16 +3637,26 @@ def phase_base_bf16(name):
     last = {k: v for k, v in rel_loss_diffs(m16, m32).items()
             if k in rel and m32[k] != f32[k]}  # rewritten by a later phase
     from_fp32 = rel_loss_diffs(runs.get("last", {}), m32)
-    held = [*rel.values(), *from_fp32.values(),
+    unfed = rel_loss_diffs(runs.get("unfed", {}), m32)
+    held = [*(v for k, v in rel.items() if k not in fresh),
+            *from_fp32.values(),
             *(v for k, v in last.items() if k not in reported)]
+    where = (f" (the features {', '.join(fed)} give the critic from the "
+             f"fp32 step, bf16's {pins.seen['feats']:.1e} of the largest "
+             "from them)" if fed else "")
     log(f"phase {BASE_TAG[name]}b {name}: bf16 vs fp32, bs{BASE_BF16_BATCH}: "
         "first-step losses relative: " + " ".join(
-            f"{k} {v:.1e}" for k, v in rel.items())
+            f"{k} {v:.1e}" + (" (reported)" if k in fresh else "")
+            for k, v in rel.items())
         + "".join(f"; the step's last {k} {v:.1e}" + (
             " (reported)" if k in reported else "")
             for k, v in last.items())
-        + "".join(f"; {k} from the fp32 step's input to its phase {v:.1e}"
-                  for k, v in from_fp32.items())
+        + (f"; from the fp32 step's input to the last phase{where}: "
+           + " ".join(f"{k} {v:.1e}" for k, v in from_fp32.items())
+           if from_fp32 else "")
+        + (f"; so without the fp32 features (reported): "
+           + " ".join(f"{k} {v:.1e}" for k, v in unfed.items())
+           if unfed else "")
         + f"; peak fp32 {pk32 / 2 ** 30:.2f} GiB, bf16 {pk16 / 2 ** 30:.2f}"
         " GiB")
     if not all(math.isfinite(v) for v in (*f16.values(), *m16.values(),
@@ -3459,14 +3665,14 @@ def phase_base_bf16(name):
         raise AssertionError(f"{name} bf16 vs fp32: {m16} against {m32}; "
                              f"from fp32's input {from_fp32}")
     return {"rel": rel, "last": last, "from_fp32": from_fp32,
-            "peak_fp32": pk32, "peak_bf16": pk16}
+            "unfed": unfed, "peak_fp32": pk32, "peak_bf16": pk16}
 
 
 def phase_base_timed(name):
-    """Phase 19c (20c) for ``name``: the fp32 step timed (one warm-up, three
-    timed) and profiled at each of ``BASE_BATCHES``; where the last does
-    not fit in the card's memory, the largest of ``BASE_FALLBACK_BATCHES``
-    that does, said so."""
+    """Phase 19c (20c, 21c) for ``name``: the fp32 step timed (one warm-up,
+    three timed) at each of ``BASE_BATCHES``, and profiled where
+    ``BASE_PROFILED`` says; where the last batch does not fit in the card's
+    memory, the largest of ``BASE_FALLBACK_BATCHES`` that does, said so."""
     import torch
 
     from cycle_depth_estimation_tpu_torch.models import create_model
@@ -3492,8 +3698,9 @@ def phase_base_timed(name):
                 f"(TF32 off): {dt * 1e3:.1f} ms/step = {k / dt:.2f} img/s, "
                 f"{flops / dt / 1e12:.1f} TFLOP/s; peak memory "
                 f"{peak / 2 ** 30:.2f} GiB")
-            profile_step(f"phase {BASE_TAG[name]}c {name} bs{k}", model,
-                         state, batch)
+            if (name, n) in BASE_PROFILED:
+                profile_step(f"phase {BASE_TAG[name]}c {name} bs{k}", model,
+                             state, batch)
             out[f"bs{k}"] = {"ms": dt * 1e3, "img_s": k / dt, "peak": peak}
             del model, state, batch
             torch.cuda.empty_cache()
@@ -3535,7 +3742,7 @@ def base_step_flops(name, n):
                              "has no mod_tracker to replace")
     counter.mod_tracker = GlobalOnly()
     with counter:
-        ctx = model._ctx(state, batch)
+        ctx = model._ctx(state=state, batch=batch)
         for pname, phase in model.PHASES:
             before = counter.get_total_flops()
             phase(model, state, ctx)
@@ -3606,7 +3813,7 @@ def resume_base_clis(run):
 
 
 def phase_base_generation(names, tag, resume=False):
-    """Phase 19 (20): 19a, 19b and 19c for each case of ``names``, the
+    """Phase 19 (20, 21): 19a, 19b and 19c for each case of ``names``, the
     train CLIs (19d) beside 19a and, with ``resume``, their resumes beside
     19b and 19c. None of these models has an InstanceNorm: the kernel
     counts must not move."""
@@ -3699,7 +3906,8 @@ def bench_loaders(n_images=96):
                 str(BATCH), "--niter", "2", "--niter_decay", "0",
                 "--print_freq", str(BATCH), "--display_freq", "1000000000",
                 "--save_latest_freq", "1000000000", "--save_epoch_freq",
-                "1000", "--device", "cuda", *flags]), f"loader {name}")
+                "1000", "--device", "cuda", *flags], threads=None),
+                f"loader {name}")
             steps = [(int(e), float(ts), float(td))
                      for e, ts, td in line.findall(out)]
             e2 = [(ts, td) for e, ts, td in steps if e == 2]
@@ -3834,6 +4042,7 @@ def main() -> int:
     base = phase_base_generation(BASE_MODELS, "19")
     two_trunk = phase_base_generation(TWO_TRUNK, "20",
                                       resume=True)
+    st = phase_base_generation(ST_MODELS, "21", resume=True)
     rf_cli = start_rf_lw_cli()  # beside phase 18b's checks
     try:
         rf, rf_lw = counts_of(lambda: phase_rf_lw(rf_cli))
@@ -3920,7 +4129,7 @@ def main() -> int:
         + "; ".join(f"{m} fp32 " + ", ".join(
             f"{k} {v['img_s']:.2f}" for k, v in runs[m].items()
             if k.startswith("bs"))
-            for runs in (base, two_trunk) for m in runs)
+            for runs in (base, two_trunk, st) for m in runs)
         + f" img/s ({BASE_H}x{BASE_W}); "
         "kernel "
         "ms are sums over the calls of one forward (23: instance_norm in "

@@ -1,7 +1,7 @@
 """Config of the port: the subset of the JAX package's ``Config`` that the
 test CLI, the CycleGAN, pix2pix, SegCycle, T2Net (``seg``), S2D,
-``S2D_base``, ``S2D_alt``, ``S2D_df``, ``S2D_nd`` and RefineNet-LW
-(``rf_lw``, ``rf_lw7``) models, the data layer and the train CLI read, with
+``S2D_base``, ``S2D_alt``, ``S2D_df``, ``S2D_nd``, ``semantic_trans``,
+``semantic_trans_full`` and RefineNet-LW (``rf_lw``, ``rf_lw7``) models, the data layer and the train CLI read, with
 the same field names, defaults, reference flag aliases (``--loadSize``,
 ``--netD``, ``--lambda_A`` …) and two-phase parse (base flags, then
 per-model defaults for flags the user did not set). ``device`` is new: the
@@ -168,6 +168,9 @@ MODEL_DEFAULTS = {
     "seg": dict(no_dropout=True, dataset_mode="synthia"),
     "seg_cycle": dict(no_dropout=True, dataset_mode="synthia"),
     "S2D": dict(dataset_mode="try", batch_size=1, fine_size=192),
+    "semantic_trans": dict(dataset_mode="try", batch_size=1, fine_size=192),
+    "semantic_trans_full": dict(dataset_mode="try", batch_size=1,
+                                fine_size=192),
     "rf_lw": dict(dataset_mode="try", batch_size=1, fine_size=192),
     "rf_lw7": dict(dataset_mode="try", batch_size=1, fine_size=192),
     "S2D_base": dict(dataset_mode="try", batch_size=1, fine_size=192),

@@ -1,8 +1,9 @@
 """Model registry: ``--model <name>`` → model class (the JAX package's
 ``models/__init__.py``). The port registers ``test`` (serving),
 ``cycle_gan``, ``pix2pix``, ``seg_cycle`` (SegCycle), ``seg`` (T2Net),
-``S2D``, ``S2D_base``, ``S2D_alt``, ``S2D_df``, ``S2D_nd``, ``rf_lw`` and
-``rf_lw7`` (training)."""
+``S2D``, ``S2D_base``, ``S2D_alt``, ``S2D_df``, ``S2D_nd``,
+``semantic_trans``, ``semantic_trans_full``, ``rf_lw`` and ``rf_lw7``
+(training)."""
 
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ def create_model(cfg, device=None):
     """Build the model ``cfg.model`` on ``device`` (default ``cfg.device``)."""
     from . import (cycle_gan, pix2pix, rf_lw, s2d,  # noqa: F401
                    s2d_alt, s2d_base, s2d_df, s2d_nd,  # (register)
-                   seg_cycle, seg_model, test_model)
+                   semantic_trans, semantic_trans_full, seg_cycle,
+                   seg_model, test_model)
 
     if cfg.model not in _MODEL_REGISTRY:
         raise KeyError(f"model [{cfg.model}] not registered; available: "

@@ -10,7 +10,8 @@ buffers.
 
 - ``make_optimizer``: Adam with betas (beta1, 0.999) and eps 1e-8 (S2D
   passes its ``adam_eps``), the update of the JAX package's ``optax.adam``
-  (and of the reference).
+  (and of the reference); ``clip_grad_global_norm_``, optax's
+  ``clip_by_global_norm`` rule before such a step.
 - ``update_learning_rate``: the epoch LR policy (``lambda``, ``step``,
   ``cosine``, ``plateau``), the plateau state kept on the host and not
   checkpointed, as in the JAX package.
@@ -53,11 +54,30 @@ def make_optimizer(params: Iterable[torch.Tensor], lr: float,
     return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=eps)
 
 
+def clip_grad_global_norm_(params: Iterable[torch.Tensor],
+                           max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
+    place: with ‖g‖ the L2 norm over every gradient, g is left as it is
+    where ‖g‖ < ``max_norm`` and becomes g / ‖g‖ · ``max_norm`` otherwise
+    (``torch.nn.utils.clip_grad_norm_`` divides by ‖g‖ + 1e-6 instead).
+    No host sync. Returns ‖g‖."""
+    grads = [p.grad for p in params]
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
 class BaseModel:
     loss_names: Tuple[str, ...] = ()
     visual_names: Tuple[str, ...] = ()
     model_names: Tuple[str, ...] = ()
     lr_opt_names: Tuple[str, ...] = ()
+    # nets whose gradient a train step clips (``clip_grad_global_norm_``)
+    # to this global norm before their optimizer step
+    clip_norms: Dict[str, float] = {}
 
     def __init__(self, cfg: Config, device=None):
         self.cfg = cfg
@@ -94,6 +114,13 @@ class BaseModel:
             for group in state.optimizers[name].param_groups:
                 group["lr"] = lr
         return state
+
+    def step_generator(self, state: ModelState) -> torch.Generator:
+        """A CPU generator seeded by ``seed`` and the step: what a step
+        draws from it, the card and the CPU draw alike, and a resumed run
+        draws what the run would have."""
+        return torch.Generator().manual_seed(
+            (self.cfg.seed + 1) * 1_000_003 + state.step)
 
     # ---- checkpoints ----------------------------------------------------
     def _paths(self, epoch) -> Dict[str, str]:

@@ -25,6 +25,14 @@ forward order: G_1 once in ``g2`` and once in ``g1``, G_2 twice in ``g2``
 ('S', then 'R') and once in ``g1``, R_D in every phase, the FDs in
 ``rd_real`` and twice each in ``fd``. The sky is class 17.
 
+For the semantic_trans generation, which subclasses it: the nets come
+from ``define_nets`` and each optimizer from ``_optimizer``; ``rd_syn``
+scores the bands by ``band_criterion``; ``rd_real`` adds
+``rd_real_extra(state, dep_4)`` to its loss; the step context keeps R_D's
+detached refined depth and bands of both branches (``real_dep_ref``,
+``real_dep_4``, ``syn_dep_ref``, ``syn_dep_4``), and ``_ctx`` takes the
+state.
+
 ``--dtype bfloat16`` runs every conv in bf16 (parameters and Adam fp32, the
 losses fp32); ``--remat`` recomputes the G_2 and R_D applications in
 backward (``torch.utils.checkpoint``), their BatchNorm statistics moved
@@ -41,7 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from . import register_model
 from ..ops.layers import running_stats_kept, set_compute_dtype
-from .base_model import BaseModel, ModelState, make_optimizer
+from .base_model import (BaseModel, ModelState, clip_grad_global_norm_,
+                         make_optimizer)
 from .networks import gan_loss, l1_loss
 from .s2d_networks import bce_dep_loss, define_s2d_nets, get_masks
 from .seg_network import cross_entropy_loss, seg_accuracy
@@ -62,17 +71,23 @@ class S2DModel(BaseModel):
     lr_opt_names = ()
 
     SKY_CLASS = 17
+    define_nets = staticmethod(define_s2d_nets)
+    # the per-band depth criterion of ``rd_syn``
+    band_criterion = staticmethod(bce_dep_loss)
+
+    def _optimizer(self, name: str, params) -> torch.optim.Optimizer:
+        cfg = self.cfg
+        return make_optimizer(params, cfg.lr / LR_DIVISOR[name], cfg.beta1,
+                              cfg.adam_eps)
 
     def init_state(self, seed: int = None) -> ModelState:
-        """The six nets from ``seed`` (default ``cfg.seed``) and one Adam
+        """The nets from ``seed`` (default ``cfg.seed``) and one optimizer
         each."""
         cfg = self.cfg
         gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
         nets = {k: set_compute_dtype(v.to(self.device), cfg.compute_dtype())
-                for k, v in define_s2d_nets(cfg, gen).items()}
-        optimizers = {k: make_optimizer(nets[k].parameters(),
-                                        cfg.lr / LR_DIVISOR[k], cfg.beta1,
-                                        cfg.adam_eps)
+                for k, v in type(self).define_nets(cfg, gen).items()}
+        optimizers = {k: self._optimizer(k, nets[k].parameters())
                       for k in self.model_names}
         return ModelState(nets=nets, optimizers=optimizers, pools={})
 
@@ -91,16 +106,21 @@ class S2DModel(BaseModel):
         return (seg_l != self.SKY_CLASS).float()[:, None]
 
     def _step(self, state: ModelState, name: str, loss: torch.Tensor):
-        """One Adam step of net ``name`` on ``loss``'s gradient."""
+        """One Adam step of net ``name`` on ``loss``'s gradient, clipped
+        first where ``clip_norms`` names the net."""
         params = list(state.nets[name].parameters())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
+        if name in self.clip_norms:
+            clip_grad_global_norm_(params, self.clip_norms[name])
         state.optimizers[name].step()
         for p in params:
             p.grad = None
 
-    def _ctx(self, batch) -> dict:
+    def _ctx(self, batch, state: ModelState = None) -> dict:
+        """The step context of ``batch`` (``state`` is for subclasses that
+        draw from the step)."""
         f = lambda k: batch[k].to(self.device, torch.float32)  # noqa: E731
         lab = lambda k: batch[k].to(self.device, torch.long)   # noqa: E731
         syn_seg_l = lab("seg_l_syn")
@@ -146,14 +166,22 @@ class S2DModel(BaseModel):
 
     def _phase_rd_real(self, state, ctx):
         nets = state.nets
-        feats, seg, _ = self._apply(nets["R_D"], ctx["real_feats"],
-                                    ctx["real_psp"])
+        feats, seg, (dep_4, dep_o) = self._apply(
+            nets["R_D"], ctx["real_feats"], ctx["real_psp"])
         adv = [gan_loss(nets[k](f), False) for k, f in zip(FDS, feats)]
         loss = (cross_entropy_loss(seg, ctx["real_seg_l"], 255)
-                + 0.2 * (adv[0] + adv[1] + adv[2]))
+                + 0.2 * (adv[0] + adv[1] + adv[2])
+                + self.rd_real_extra(state, dep_4))
         self._step(state, "R_D", loss)
         ctx["metrics"]["R_D_real"] = loss.detach()
-        ctx["real_feats_d"] = [f.detach() for f in feats]
+        ctx.update(real_feats_d=[f.detach() for f in feats],
+                   real_dep_ref=dep_o.detach(),
+                   real_dep_4=[b.detach() for b in dep_4])
+
+    def rd_real_extra(self, state, dep_4):
+        """An extra loss of the ``rd_real`` phase on R_D's four band depths:
+        none in S2D."""
+        return 0.0
 
     def _phase_rd_syn(self, state, ctx):
         feats, seg, (dep_4, dep_o) = self._apply(
@@ -162,7 +190,7 @@ class S2DModel(BaseModel):
         l1_term = l1_loss(dep_o, sky * ctx["syn_dep_l"])
         band_term = torch.zeros((), device=self.device)
         for band in dep_4:
-            band_term = band_term + bce_dep_loss(
+            band_term = band_term + self.band_criterion(
                 sky * band, ctx["sky4"] * ctx["syn_dep_ls"], ctx["oms"],
                 ctx["zms"])
         dep_loss = l1_term + band_term
@@ -171,7 +199,9 @@ class S2DModel(BaseModel):
         ctx["metrics"].update(R_D_syn=loss.detach(), dep_ref=dep_loss.detach(),
                               dep_l1=l1_term.detach(),
                               dep_band=band_term.detach())
-        ctx["syn_feats_d"] = [f.detach() for f in feats]
+        ctx.update(syn_feats_d=[f.detach() for f in feats],
+                   syn_dep_ref=dep_o.detach(),
+                   syn_dep_4=[b.detach() for b in dep_4])
 
     def _phase_fd(self, state, ctx):
         total = torch.zeros((), device=self.device)
@@ -190,14 +220,15 @@ class S2DModel(BaseModel):
     def train_step_phased(self, state: ModelState, batch,
                           progress: Optional[Callable[[str], None]] = None
                           ) -> Tuple[ModelState, Dict[str, torch.Tensor]]:
-        """The train step, calling ``progress(name)`` after each phase
-        (``g2``, ``g1``, ``rd_real``, ``rd_syn``, ``fd``). ``batch`` holds
+        """The train step, calling ``progress(name)`` after each phase of
+        ``PHASES`` (``g2``, ``g1``, ``rd_real``, ``rd_syn``, ``fd``; a
+        subclass may add some). ``batch`` holds
         NCHW ``img_syn``/``img_real`` in [-1, 1], ``dep_l_syn`` (N1HW) and
         ``depth_l_s`` (N4HW) in [-1, 1], and NHW ``seg_l_syn``/``seg_l_real``.
         Updates ``state`` in place."""
         for net in state.nets.values():
             net.train()
-        ctx = self._ctx(batch)
+        ctx = self._ctx(batch, state)
         for name, phase in self.PHASES:
             phase(self, state, ctx)
             if progress is not None:

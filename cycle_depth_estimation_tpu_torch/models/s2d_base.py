@@ -42,7 +42,8 @@ import torch
 
 from . import register_model
 from ..ops.layers import set_compute_dtype
-from .base_model import BaseModel, ModelState, make_optimizer
+from .base_model import (BaseModel, ModelState, clip_grad_global_norm_,
+                         make_optimizer)
 from .networks import gan_loss, l1_loss
 from .s2d_networks import CLASS_WEIGHTS_28, define_s2d_base_nets
 from .seg_network import cross_entropy_loss, seg_accuracy
@@ -73,17 +74,11 @@ class PhasedModel(BaseModel):
                       for k in self.model_names}
         return ModelState(nets=nets, optimizers=optimizers, pools={})
 
-    def step_generator(self, state: ModelState) -> torch.Generator:
-        """A CPU generator seeded by ``seed`` and the step: what a step
-        draws from it, the card and the CPU draw alike, and a resumed run
-        draws what the run would have."""
-        return torch.Generator().manual_seed(
-            (self.cfg.seed + 1) * 1_000_003 + state.step)
-
     def _step(self, state: ModelState, names, loss: torch.Tensor):
         """One optimizer step of each net of ``names`` on ``loss``'s
         gradient; a parameter ``loss`` does not reach gets a zero one, so
-        that Adam counts the step as optax does."""
+        that Adam counts the step as optax does. A net of ``clip_norms``
+        has its gradient clipped first."""
         params = [list(state.nets[k].parameters()) for k in names]
         grads = torch.autograd.grad(loss, [p for ps in params for p in ps],
                                     allow_unused=True)
@@ -92,6 +87,8 @@ class PhasedModel(BaseModel):
             for p in ps:
                 g = next(it)
                 p.grad = torch.zeros_like(p) if g is None else g
+            if name in self.clip_norms:
+                clip_grad_global_norm_(ps, self.clip_norms[name])
             state.optimizers[name].step()
             for p in ps:
                 p.grad = None

@@ -35,18 +35,24 @@ the reference's state-dict names:
   ``S2D_nd`` (new_depseg/networks2.py): ``SEG`` and ``DEP`` (``ordimat``
   coordinate channels), ``DiscriminatorSeg`` and, with ``--nd_4dis``, two
   256-channel ``Dis2SegDF``; ``bce_gan_loss``, ``real_dep_loss`` and the
-  WGAN-GP ``calc_gradient_penalty``.
+  WGAN-GP ``calc_gradient_penalty``;
+- the semantic_trans generation (trymulti/semantic_trans/networks5_ds.py):
+  the refiner ``RDepST`` (``GSideST``, ``DepthBlockST``, ``SegBlockST``),
+  the critics ``StarDiscriminator`` (DIS, Dis_80/160/320) and
+  ``Discriminator2Seg``, and, which no model builds,
+  ``FeatureDiscriminatorS`` and ``gram_matrix``/``style_loss``.
 
 flax infers each layer's input width; here the widths come from the nets
 they follow (``feature_channels``, G_1's 64, ``mid_nc``, SEGDF's
-``feature_nc``).
+``feature_nc``, the ST blocks' ``out_c``).
 
 All BatchNorms are ``ops/layers.BatchNorm`` (flax's running-variance
 update). Each net's ``jax_sites`` names its parts as the JAX module's
 variable tree does, which ``utils/weights.s2d_state_dicts_from_jax`` reads.
 A reference ``.pth`` loads as it is: ``load_state_dict`` drops the
-DataParallel ``module.`` prefix, ``RDep`` the ``up0``/``dep_out``/``norm``
-entries its forward never uses and the decoders with ``DeconvBlock``s
+DataParallel ``module.`` prefix, ``RDep`` and ``RDepST`` the
+``up0``/``dep_out``/``norm`` entries their forwards never use and the
+decoders with ``DeconvBlock``s
 (``SEG2``, ``DEP2``, ``SEG``, ``DEP``, ``SEGDF``, ``DEPDF``) their unused
 ``bn``, as the JAX importers do.
 
@@ -291,6 +297,7 @@ class GeneralNet(_ReferenceNet):
         self.features = nn.Sequential(OrderedDict(layers))
         self.PSP = nn.ModuleList(psp)
         self.psp = PspHead(nf, mid_nc)
+        self.mid_nc = mid_nc
         self.feature_channels = tuple(channels)
 
     def forward(self, x, mode: str = "R"):
@@ -448,6 +455,175 @@ class RDep(_ReferenceNet):
 
 
 # ---------------------------------------------------------------------------
+# the semantic_trans generation's refiner (semantic_trans/networks5_ds.py:
+# 496-695)
+# ---------------------------------------------------------------------------
+
+
+class GSideST(nn.Module, Sites):
+    """G_side of the semantic_trans generation (networks5_ds.py:496-521): a
+    channel attention from the deep feature (conv s2, BN, LeakyReLU, global
+    mean, sigmoid) gates the projected skip feature (conv, LeakyReLU, BN);
+    that and the deep feature concatenated, then conv, LeakyReLU, BN back to
+    ``df_c``, at the deep feature's size. ``s_c``: the skip feature's
+    channels; ``d_c``: the deep feature's (default ``df_c``)."""
+
+    def __init__(self, df_c: int, s_c: int, d_c: int = None):
+        super().__init__()
+        c, d_c = df_c, d_c or df_c
+        self.attention_bs = nn.Sequential(
+            Conv2d(d_c, c, 3, 2, 1), BatchNorm(c), _leaky(),
+            nn.AdaptiveAvgPool2d(1), nn.Sigmoid())
+        self.side_conv = nn.Sequential(Conv2d(s_c, c, 3, 1, 1), _leaky(),
+                                       BatchNorm(c))
+        self.conv = nn.Sequential(Conv2d(d_c + c, c, 3, 1, 1), _leaky(),
+                                  BatchNorm(c))
+
+    def forward(self, s_feature, d_feature):
+        gated = self.attention_bs(d_feature) * self.side_conv(s_feature)
+        return self.conv(torch.cat([d_feature, gated], 1))
+
+    def jax_sites(self):
+        a, s, c = self.attention_bs, self.side_conv, self.conv
+        return {"at_conv": a[0], "at_norm": a[1], "side_conv": s[0],
+                "side_norm": s[2], "out_conv": c[0], "out_norm": c[2]}
+
+
+class DepthBlockST(nn.Module, Sites):
+    """depth_block of the semantic_trans generation (networks5_ds.py:
+    523-577): four ×2 branches (deconv, LeakyReLU, BN), each with a tanh
+    depth head and an attention gate (conv s2, LeakyReLU, BN, global mean,
+    sigmoid: ``a·f + f``); the gated branches fused (conv, LeakyReLU, BN) to
+    ``in_c``/2 channels F, then an edge head (``s_econv``: conv, BN,
+    sigmoid) and a depth head (``depconv``: conv, BN). Returns (F, the four
+    band depths, concat(edge, depth))."""
+
+    def __init__(self, in_c: int):
+        super().__init__()
+        c, h = in_c, in_c // 2
+        self.upconv = nn.ModuleList(nn.Sequential(
+            ConvTranspose2d(c, h, 4, 2, 1), _leaky(), BatchNorm(h))
+            for _ in range(4))
+        self.depth_out = nn.ModuleList(nn.Sequential(
+            Conv2d(h, 1, 3, 1, 1), nn.Tanh()) for _ in range(4))
+        self.attention_bs = nn.ModuleList(nn.Sequential(
+            Conv2d(c, h, 3, 2, 1), _leaky(), BatchNorm(h),
+            nn.AdaptiveAvgPool2d(1), nn.Sigmoid()) for _ in range(4))
+        self.conv = nn.Sequential(Conv2d(4 * h, h, 3, 1, 1), _leaky(),
+                                  BatchNorm(h))
+        self.s_econv = nn.Sequential(Conv2d(h, 1, 3, 1, 1), BatchNorm(1),
+                                     nn.Sigmoid())
+        self.depconv = nn.Sequential(Conv2d(h, 1, 3, 1, 1), BatchNorm(1))
+        self.out_c = h
+
+    def forward(self, x):
+        dep_o, out_f = [], []
+        for up, head, att in zip(self.upconv, self.depth_out,
+                                 self.attention_bs):
+            f = up(x)
+            dep_o.append(head(f))
+            out_f.append(att(x) * f + f)
+        feat = self.conv(torch.cat(out_f, 1))
+        return feat, dep_o, torch.cat([self.s_econv(feat),
+                                       self.depconv(feat)], 1)
+
+    def jax_sites(self):
+        sites = {}
+        for i in range(4):
+            u, a = self.upconv[i], self.attention_bs[i]
+            sites.update({f"up{i}_deconv": u[0], f"up{i}_norm": u[2],
+                          f"depth_out{i}": self.depth_out[i][0],
+                          f"at{i}_conv": a[0], f"at{i}_norm": a[2]})
+        return {**sites, "fuse_conv": self.conv[0],
+                "fuse_norm": self.conv[2], "se_conv": self.s_econv[0],
+                "se_norm": self.s_econv[1], "dep_conv": self.depconv[0],
+                "dep_norm": self.depconv[1]}
+
+
+class SegBlockST(nn.Module, Sites):
+    """seg_block of the semantic_trans generation (networks5_ds.py:
+    579-598): LeakyReLU, a ×2 deconv to ``out_c``, BN; and a 1×1 28-class
+    head ``result`` with a LeakyReLU. Returns (the features, the logits)."""
+
+    def __init__(self, in_c: int, out_c: int):
+        super().__init__()
+        self.deconv = ConvTranspose2d(in_c, out_c, 4, 2, 1)
+        self.bn = BatchNorm(out_c)
+        self.result = Conv2d(out_c, 28, 1)
+        self.out_c = out_c
+
+    def forward(self, x):
+        h = self.bn(self.deconv(leaky(x)))
+        return h, leaky(self.result(h))
+
+    def jax_sites(self):
+        return {"deconv": self.deconv, "bn": self.bn, "result": self.result}
+
+
+class RDepST(_ReferenceNet):
+    """R_dep of the semantic_trans generation (networks5_ds.py:601-695), a
+    four-level top-down refiner at the fixed widths 1024, 512, 256 and 128.
+    Level k: ``AT.k`` (``GSideST``) fuses G_2's skip feature 3 − k into the
+    running deep feature (level 0: G_2's ``d_nc``-channel PSP output; then
+    the depth features), ``Dep.k`` (``DepthBlockST``) takes it ×2, and
+    ``Seg.k`` (``SegBlockST``) chains the seg features, concatenated with
+    the depth features from level 1 on. ``forward(s_features, d_feature)``
+    returns (seds, segs, deps) at the input image's size: the (edge, depth)
+    pairs and the band depths of levels 1–3 (bilinear, corners aligned),
+    the logits of levels 1–3 (nearest). Level 0's logits, bands and pair
+    are computed and dropped, as in the reference (its BatchNorms move);
+    its unused ``up0``/``dep_out``/``norm`` entries are dropped on load.
+    ``feature_nc``: G_2's four skip widths."""
+
+    unused_prefixes = ("up0.", "dep_out.", "norm.")
+    WIDTHS = (1024, 512, 256, 128)
+
+    def __init__(self, d_nc: int = 1024,
+                 feature_nc: Sequence[int] = (256, 512, 1280, 1664)):
+        super().__init__()
+        at, seg, dep = [], [], []
+        deep = d_nc
+        seg_in = self.WIDTHS[0]
+        for k, c in enumerate(self.WIDTHS):
+            at.append(GSideST(c, feature_nc[3 - k], deep))
+            dep.append(DepthBlockST(c))
+            seg.append(SegBlockST(seg_in, c // 2))
+            deep = dep[-1].out_c
+            seg_in = seg[-1].out_c + deep
+        self.AT, self.Seg, self.Dep = (nn.ModuleList(m) for m in (at, seg,
+                                                                  dep))
+
+    @staticmethod
+    def _up(x, k, nearest=False):
+        if k == 1:
+            return x
+        size = (x.shape[2] * k, x.shape[3] * k)
+        return (resize_nearest(x, size) if nearest
+                else resize_bilinear(x, size, align_corners=True))
+
+    def forward(self, s_features, d_feature):
+        deep, seg_f, outs = d_feature, None, []
+        for k in range(4):
+            h = self.AT[k](s_features[3 - k], deep)
+            seg_in = h if seg_f is None else torch.cat([seg_f, deep], 1)
+            seg_f, logits = self.Seg[k](seg_in)
+            deep, bands, sed = self.Dep[k](h)
+            outs.append((logits, bands, sed))
+        ups = (4, 2, 1)
+        seds = tuple(self._up(s, k) for (_, _, s), k in zip(outs[1:], ups))
+        segs = tuple(self._up(g, k, nearest=True)
+                     for (g, _, _), k in zip(outs[1:], ups))
+        deps = tuple(torch.cat([self._up(d, k) for d in b], 1)
+                     for (_, b, _), k in zip(outs[1:], ups))
+        return seds, segs, deps
+
+    def jax_sites(self):
+        return {**{f"gs{k}": m for k, m in enumerate(self.AT)},
+                **{f"seg{k}": m for k, m in enumerate(self.Seg)},
+                **{f"dep{k}": m for k, m in enumerate(self.Dep)}}
+
+
+# ---------------------------------------------------------------------------
 # discriminator
 # ---------------------------------------------------------------------------
 
@@ -485,6 +661,89 @@ class SDiscriminator(_ReferenceNet):
         base = 2 + 3 * (n - 1)
         return {**sites, f"conv{n}": m[base], f"norm{n}": m[base + 1],
                 "conv_out": m[base + 3]}
+
+
+class FeatureDiscriminatorS(nn.Module):
+    """_FeatureDiscriminator with an explicit size (networks5_ds.py:
+    569-599): over the NCHW-flattened ``input_nc`` × ``size`` input, a
+    ``Linear`` to ``input_nc`` and a PReLU (``fc0``, ``prelu0``), then
+    ``n_layers`` − 1 more such pairs, then ``fc_out`` to one output. No
+    model builds it and no importer reads it: its names are the JAX
+    module's."""
+
+    def __init__(self, input_nc: int = 512, n_layers: int = 2,
+                 size: Tuple[int, int] = (40, 12)):
+        super().__init__()
+        n_in = input_nc * size[0] * size[1]
+        for i in range(n_layers):
+            setattr(self, f"fc{i}", nn.Linear(n_in if i == 0 else input_nc,
+                                               input_nc))
+            setattr(self, f"prelu{i}", PReLU())
+        self.fc_out = nn.Linear(input_nc, 1)
+        self.n_layers = n_layers
+
+    def forward(self, x):
+        h = x.flatten(1)
+        for i in range(self.n_layers):
+            h = getattr(self, f"prelu{i}")(getattr(self, f"fc{i}")(h))
+        return self.fc_out(h)
+
+
+class StarDiscriminator(_ReferenceNet):
+    """Discriminator (networks5_ds.py:264-288), norm-free: a 3×3 stride-2
+    conv from ``input_nc`` to ``conv_dim`` channels, then ``repeat_num`` −
+    1 × [4×4 stride-2 conv doubling the width], each followed by
+    LeakyReLU(0.01) (convs at ``main.{2i}``); a bias-free 1×1 head
+    ``conv1``, LeakyReLU(0.01), the channel dim squeezed. The
+    semantic_trans generation's DIS (repeat 5 over the 2-channel (depth,
+    label) pair) and Dis_80/Dis_160/Dis_320 (repeat 3, 4, 4 over a depth
+    map). JAX names ``conv{i}``, ``head``."""
+
+    def __init__(self, input_nc: int, conv_dim: int = 32, repeat_num: int = 6):
+        super().__init__()
+        layers = [Conv2d(input_nc, conv_dim, 3, 2, 1), nn.LeakyReLU(0.01)]
+        dim = conv_dim
+        for _ in range(1, repeat_num):
+            layers += [Conv2d(dim, 2 * dim, 4, 2, 1), nn.LeakyReLU(0.01)]
+            dim *= 2
+        self.main = nn.Sequential(*layers)
+        self.conv1 = Conv2d(dim, 1, 1, bias=False)
+
+    def forward(self, x):
+        return F.leaky_relu(self.conv1(self.main(x)), 0.01)[:, 0]
+
+    def jax_sites(self):
+        return {**{f"conv{i}": self.main[2 * i]
+                   for i in range(len(self.main) // 2)},
+                "head": self.conv1}
+
+
+class Discriminator2Seg(_ReferenceNet):
+    """Discriminator2_seg (networks5_ds.py:842-864): ``repeat_num`` × [1×1
+    conv halving the width from ``conv_dim``, LeakyReLU(0.01), then
+    BatchNorm] (``main.{3i}``, ``main.{3i+2}``) over ``input_nc``
+    channels, a bias-free 3×3 stride-2 head ``conv1``, sigmoid, the channel
+    dim squeezed. JAX names ``conv{i}``, ``norm{i}``, ``head``."""
+
+    def __init__(self, input_nc: int, conv_dim: int = 1024,
+                 repeat_num: int = 3):
+        super().__init__()
+        layers, cur, dim = [], input_nc, conv_dim
+        for _ in range(repeat_num):
+            dim //= 2
+            layers += [Conv2d(cur, dim, 1), nn.LeakyReLU(0.01), BatchNorm(dim)]
+            cur = dim
+        self.main = nn.Sequential(*layers)
+        self.conv1 = Conv2d(cur, 1, 3, 2, 1, bias=False)
+
+    def forward(self, x):
+        return torch.sigmoid(self.conv1(self.main(x)))[:, 0]
+
+    def jax_sites(self):
+        n = len(self.main) // 3
+        return {**{f"conv{i}": self.main[3 * i] for i in range(n)},
+                **{f"norm{i}": self.main[3 * i + 2] for i in range(n)},
+                "head": self.conv1}
 
 
 class DeconvBlock(nn.Module, Sites):
@@ -1201,6 +1460,56 @@ def define_s2d_nets(cfg, generator: torch.Generator = None
     return nets
 
 
+def star_critics() -> Dict[str, nn.Module]:
+    """The semantic_trans generation's four ``StarDiscriminator``s,
+    uninitialised: DIS over the (depth, label) pair, repeat 5; Dis_80,
+    Dis_160 and Dis_320 over a depth map, repeat 3, 4 and 4."""
+    return {"DIS": StarDiscriminator(2, repeat_num=5),
+            **{k: StarDiscriminator(1, repeat_num=r)
+               for k, r in (("Dis_80", 3), ("Dis_160", 4), ("Dis_320", 4))}}
+
+
+def semantic_trans_nets(cfg) -> Dict[str, nn.Module]:
+    """The ten semantic_trans nets, uninitialised: ``s2d_nets`` and
+    ``star_critics``."""
+    return {**s2d_nets(cfg), **star_critics()}
+
+
+def define_semantic_trans_nets(cfg, generator: torch.Generator = None
+                               ) -> Dict[str, nn.Module]:
+    """``semantic_trans_nets`` initialised as the JAX nets are: the S2D
+    nets as ``define_s2d_nets`` draws them, then the critics N(0,
+    0.02²)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return {**define_s2d_nets(cfg, generator),
+            **_init_nets(star_critics(), (), generator)}
+
+
+def semantic_trans_full_nets(cfg) -> Dict[str, nn.Module]:
+    """The ten semantic_trans_full nets at ``cfg``'s ``g1_blocks`` and
+    ``dense_block_config`` (G_2's growth and ``mid_nc`` the JAX defaults,
+    32 and 1024), uninitialised: G_1, G_2 (``GeneralNet``), Seg_de and
+    Dep_de (``SEG``/``DEP`` at slope 0.02, no tanh) over G_2's ``mid_nc``,
+    R_D (``RDepST`` over G_2's outputs), Dis0_en (``Discriminator2Seg``
+    over Seg_de's input) and ``star_critics``."""
+    g2 = GeneralNet(block_config=tuple(cfg.dense_block_config
+                                       or (6, 12, 32, 32)))
+    mid = g2.mid_nc
+    return {"G_1": G1(n_blocks=cfg.g1_blocks), "G_2": g2,
+            "Seg_de": SEG(28, mid), "Dep_de": DEP(mid),
+            "R_D": RDepST(mid, g2.feature_channels),
+            "Dis0_en": Discriminator2Seg(mid), **star_critics()}
+
+
+def define_semantic_trans_full_nets(cfg, generator: torch.Generator = None
+                                    ) -> Dict[str, nn.Module]:
+    """``semantic_trans_full_nets`` initialised as the JAX nets are: G_1
+    and G_2 kaiming, the rest N(0, 0.02²)."""
+    return _init_nets(semantic_trans_full_nets(cfg), ("G_1", "G_2"),
+                      generator)
+
+
 # ---------------------------------------------------------------------------
 # losses (networks5_ds.py:947-982)
 # ---------------------------------------------------------------------------
@@ -1286,3 +1595,17 @@ def calc_gradient_penalty(d, x_real: torch.Tensor, x_fake: torch.Tensor,
                                create_graph=True)
     gnorm = torch.sqrt((g * g).sum(1) + 1e-12)
     return lambda_ * ((gnorm - 1.0) ** 2).mean()
+
+
+def gram_matrix(x: torch.Tensor) -> torch.Tensor:
+    """GramMatrix (networks5_ds.py:794-805): the NCHW input as N·C rows of
+    H·W features F, in fp32; F·Fᵀ / (N·C·H·W). No model calls it (the
+    reference's style terms are commented out)."""
+    n, c, h, w = x.shape
+    f = x.reshape(n * c, h * w).float()
+    return f @ f.T / (n * c * h * w)
+
+
+def style_loss(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """StyleLoss (networks5_ds.py:807-817): the MSE of the Gram matrices."""
+    return F.mse_loss(gram_matrix(x), gram_matrix(target))

@@ -34,7 +34,12 @@ against the JAX module's outputs); ``s2d_df_state_dicts_from_jax`` of
 ``import_dis2seg_df``; ``s2d_nd_state_dicts_from_jax`` of
 ``import_general_net2``, ``import_seg_decoder``, ``import_dep_decoder``
 and ``import_dis2seg_df`` (which reads ``DiscriminatorSeg`` and the twin
-critics too);
+critics too); ``semantic_trans_state_dicts_from_jax`` of S2D's importers
+and ``import_star_discriminator``; ``semantic_trans_full_state_dicts_from_jax``
+of ``import_g1``, ``import_general_net``, ``import_seg_decoder``,
+``import_dep_decoder``, ``import_rdep_st``, ``import_discriminator2_seg``
+and ``import_star_discriminator`` (``FeatureDiscriminatorS`` has no
+importer: it is held against the JAX module in its test);
 ``rf_lw_state_dicts_from_jax`` of ``import_resnetlw`` and ``import_segd``
 (rf_lw7's ``depth`` block has no importer: it is held against the JAX
 module's outputs).
@@ -61,7 +66,9 @@ from ..models.networks import (_RESNET_BLOCKS, _UNET_DOWNS,
                                ResnetGenerator, UnetGenerator)
 from ..models.refinenet import rf_lw_nets
 from ..models.s2d_networks import (s2d_alt_nets, s2d_base_nets,
-                                    s2d_df_nets, s2d_nd_nets, s2d_nets)
+                                    s2d_df_nets, s2d_nd_nets, s2d_nets,
+                                    semantic_trans_full_nets,
+                                    semantic_trans_nets)
 from ..models.seg_network import UNetGenerator
 from ..ops.layers import PReLU
 
@@ -371,6 +378,25 @@ def s2d_nd_state_dicts_from_jax(variables: Mapping[str, Any], cfg
     ``nd_4dis`` ``Dis0_en`` and ``Dis1_en``; numpy leaves) → the port's
     state dicts, at ``cfg``'s ``dense_block_config``."""
     return _nets_state_dicts_from_jax(s2d_nd_nets, variables, cfg)
+
+
+def semantic_trans_state_dicts_from_jax(variables: Mapping[str, Any], cfg
+                                        ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """The JAX semantic_trans nets' variables (any of the S2D nets and
+    ``DIS``, ``Dis_80``, ``Dis_160``, ``Dis_320``; numpy leaves) → the
+    port's state dicts, at ``cfg``'s S2D widths."""
+    return _nets_state_dicts_from_jax(semantic_trans_nets, variables, cfg)
+
+
+def semantic_trans_full_state_dicts_from_jax(variables: Mapping[str, Any],
+                                             cfg
+                                             ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """The JAX semantic_trans_full nets' variables (any of ``G_1``,
+    ``G_2``, ``Seg_de``, ``Dep_de``, ``R_D``, ``Dis0_en`` and the four
+    critics; numpy leaves) → the port's state dicts, at ``cfg``'s
+    ``g1_blocks`` and ``dense_block_config``."""
+    return _nets_state_dicts_from_jax(semantic_trans_full_nets, variables,
+                                      cfg)
 
 
 def rf_lw_state_dicts_from_jax(variables: Mapping[str, Any], cfg

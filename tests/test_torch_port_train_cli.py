@@ -223,12 +223,15 @@ def test_s2d_base_generation_flags_parse():
         "6blocks"
 
 
-def _train_and_resume(extra, tmp_path):
-    """Two steps on tiny ``try`` files at 64×192, a save, then a resume
-    with ``--continue_train`` for one more step; the nets load back.
-    Returns the model the checkpoints were read with and the names of the
-    epoch-2 net files; the checkpoints (about 1 GB with Adam's state) are
-    deleted."""
+def _train_and_resume(extra, tmp_path, logged=("acc_real", "dep_syn"),
+                      visual="syn_dep_pre"):
+    """Two steps on tiny ``try`` files at 64×192 (``extra`` goes last and
+    may override the size and widths), a save, then a resume with
+    ``--continue_train`` for one more step; the nets load back. The loss
+    log holds ``logged``, and the page the image of ``visual``. Returns
+    the model the checkpoints were read with and the names of the epoch-2
+    net files; the checkpoints (about 1 GB with Adam's state, 2 GB with
+    RDepST's) are deleted."""
     from cycle_depth_estimation_tpu_torch.models import create_model
     from cycle_depth_estimation_tpu_torch.utils.weights import load_pth
     from tests.test_torch_port_try_data import write_try_files
@@ -237,20 +240,20 @@ def _train_and_resume(extra, tmp_path):
     torch.set_num_threads(1)
     try:
         lists = write_try_files(str(tmp_path / "data"), n=2)
-        args = [*extra, "--device", "cpu", "--fine_size", "64",
+        args = ["--device", "cpu", "--fine_size", "64",
                 "--dense_block_config", "1", "1", "1", "1",
                 "--checkpoints_dir", str(tmp_path / "ck"),
                 "--name", "run", "--niter", "1", "--niter_decay", "0",
                 "--save_epoch_freq", "1", "--print_freq", "1",
-                "--display_freq", "2", "--num_threads", "0"]
+                "--display_freq", "2", "--num_threads", "0", *extra]
         for kind, path in lists.items():
             args += [f"--{kind}_file_train", path]
         state = train_main(args)
         assert state.step == 2
         expr = tmp_path / "ck" / "run"
         log = (expr / "loss_log.txt").read_text()
-        assert "acc_real" in log and "dep_syn" in log
-        assert (expr / "web" / "images" / "epoch001_syn_dep_pre.png").is_file()
+        assert all(k in log for k in logged)
+        assert (expr / "web" / "images" / f"epoch001_{visual}.png").is_file()
         state = train_main(args + ["--continue_train", "--epoch_count", "2",
                                    "--niter", "2", "--max_dataset_size", "1"])
         assert state.step == 3
@@ -330,3 +333,67 @@ def test_two_trunk_train_cli_trains_and_resumes(case, tmp_path):
     m, files = _train_and_resume(["--model", *case.split()], tmp_path)
     assert m.model_names == tuple(TWO_TRUNK[case])
     assert files == {f"2_net_{k}.pth" for k in TWO_TRUNK[case]}
+
+
+ST_NETS = {
+    "semantic_trans": {"G_1": "G1", "G_2": "GeneralNet", "R_D": "RDep",
+                       "FD1": "SDiscriminator", "FD2": "SDiscriminator",
+                       "FD3": "SDiscriminator", "DIS": "StarDiscriminator",
+                       "Dis_80": "StarDiscriminator",
+                       "Dis_160": "StarDiscriminator",
+                       "Dis_320": "StarDiscriminator"},
+    "semantic_trans_full": {"G_1": "G1", "G_2": "GeneralNet", "Seg_de": "SEG",
+                            "Dep_de": "DEP", "R_D": "RDepST",
+                            "Dis0_en": "Discriminator2Seg",
+                            "DIS": "StarDiscriminator",
+                            "Dis_80": "StarDiscriminator",
+                            "Dis_160": "StarDiscriminator",
+                            "Dis_320": "StarDiscriminator"}}
+# semantic_trans keeps S2D's FD nets, whose outputs are empty below 192
+# pixels a side: its CLI runs at S2D's smallest widths at 192×576
+ST_ARGS = {"semantic_trans": ["--fine_size", "192", "--dense_block_config",
+                              "2", "2", "2", "2", "--g1_blocks", "1",
+                              "--s2d_mid_nc", "64", "--dense_growth_rate",
+                              "8"],
+           "semantic_trans_full": ["--g1_blocks", "1"]}
+
+
+@pytest.mark.parametrize("model", list(ST_NETS))
+def test_semantic_trans_models_build_their_nets(model):
+    from cycle_depth_estimation_tpu_torch.models import create_model
+
+    cfg = parse_args(["--model", model, "--device", "cpu", "--adam_eps",
+                      "1e-3", *ST_ARGS[model]])
+    assert (cfg.dataset_mode, cfg.batch_size) == ("try", 1)
+    assert parse_args(["--model", model]).fine_size == 192
+    m = create_model(cfg)
+    state = m.init_state()
+    assert tuple(state.nets) == m.model_names == tuple(ST_NETS[model])
+    assert {k: type(v).__name__ for k, v in state.nets.items()} == \
+        ST_NETS[model]
+    adam = {k: (o.param_groups[0]["lr"], o.param_groups[0]["eps"])
+            for k, o in state.optimizers.items()}
+    critics = ("DIS", "Dis_80", "Dis_160", "Dis_320")
+    if model == "semantic_trans":  # S2D's nets at --adam_eps
+        div = {"G_1": 5, "G_2": 3, "R_D": 2, "FD1": 4, "FD2": 4, "FD3": 4}
+        assert adam == {k: (2e-4 / 4, 1e-8) if k in critics
+                        else (2e-4 / div[k], 1e-3) for k in ST_NETS[model]}
+    else:  # eps 1e-8 whatever --adam_eps says, as the JAX model
+        assert adam == {k: (2e-4 / (4 if k in critics else 2), 1e-8)
+                        for k in ST_NETS[model]}
+    assert m.clip_norms == {"Dis_160": 1.0, "Dis_320": 1.0}
+
+
+@pytest.mark.parametrize("model", list(ST_NETS))
+def test_semantic_trans_train_cli_trains_and_resumes(model, tmp_path):
+    """As the base generation's: two steps, a resume for a third; the
+    checkpoints are the model's ``model_names``, the never-stepped Dis_80
+    among them."""
+    logged, visual = {"semantic_trans": (("gp", "d160", "dep_band"),
+                                         "syn_dep_ref"),
+                      "semantic_trans_full": (("d160_syn", "dep_syn"),
+                                              "syn_dep_pre")}[model]
+    m, files = _train_and_resume(["--model", model, *ST_ARGS[model]],
+                                 tmp_path, logged, visual)
+    assert m.model_names == tuple(ST_NETS[model])
+    assert files == {f"2_net_{k}.pth" for k in ST_NETS[model]}
