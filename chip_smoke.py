@@ -112,7 +112,8 @@ tracker) still runs 10 s after the CLI ended. The script fails, too, if a
 process it started still runs when it is about to print its result.
 
 Launch counts are zeroed just before phase 3 and read after phase 7 (the
-serving path), before phase 8 and after phase 9 (the training path),
+serving path), before and after phase 22 (generic PTQ), before phase 8
+and after phase 9 (the training path),
 before phase 10 and after phase 12 (the pix2pix path), and before and
 after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net),
 17, 19, 20 and 21 (S2D and the base, two-trunk and semantic_trans
@@ -184,13 +185,29 @@ generations, where they must stay 0) and 18b (rf_lw).
    the CPU's input to phase D; 21b bf16 against fp32 (semantic_trans_full's
    phase D from the fp32 step's input with the features Dis0_en reads
    taken from the fp32 step, and reported without them); 21c timed at
-   batch 1 and 8 and profiled; 21d both train CLIs, two steps each and a
-   resume for a third.
+   batch 1 and 8; 21d both train CLIs, two steps each.
    No InstanceNorm or epilogue launch may happen in phase 21.
+22. Generic PTQ (``models/ptq.py``) at the JAX package's working points,
+   run after phase 7 with its own launch counts (the path ``ptq``), TF32
+   off: the main path's generator (9 blocks, ngf 64, batch 8, 256²)
+   calibrated on 4 structured images and served int8 at its 22 conv sites
+   (23 InstanceNorm launches a forward), cosine against its fp32 output ≥
+   0.99, ms and img/s beside phases 3, 4 and 6, and the ConvTranspose
+   opt-in (24 sites) likewise; rf_lw's ResNetLW-101 at 192×576, batch 1,
+   calibrated on 'real' and served in 'real' and 'syn' (pred cosine ≥
+   0.99); the S2D chain G_1 → G_2 (DenseNet-169) → R_D at 192×576, batch
+   1 (depth and seg cosine ≥ 0.98, seg argmax agreement > 0.9). 22a: every
+   int8 conv of those forwards on its own int8 inputs ``torch.equal`` to
+   the fp64 conv (the dilated PSP convs, the small pooled planes). 22b:
+   the test CLI in process, ``--model test --model_suffix _A --int8`` on
+   the generator saved as ``latest_net_G_A.pth``: the gallery and "22 conv
+   sites". 22c: ResGenerator and PreUNet16 at T2Net's 192×640 (ngf 64),
+   the MultiscaleDiscriminator (2 scales) and the FeatureDiscriminator
+   (512×12×40), the card's forward against the CPU's within 1e-4 of the
+   largest output.
 
 Phases 17a, 18b, 19c and 20c profile one step each (17a, 19c and 20c
-their first model's batch-1 step, 18b its batch-8 step); 21c profiles
-both batches of both models.
+their first model's batch-1 step, 18b its batch-8 step).
 
 The last three lines
 are a JSON object with every kernel's numbers, the card's name and power
@@ -3021,10 +3038,9 @@ BASE_GRAD_PINS = {"semantic_trans_full": {"G_1": "G_1"}}
 # feature feed), and reports it without them.
 BASE_BF16_FED = {"semantic_trans_full": ("Seg_de",)}
 # The timed steps that are also profiled (idle share, top kernels): the
-# batch-1 step of the first model of phases 19 and 20, and both batches of
-# phase 21's models; phases 17 and 18 profile one each.
-BASE_PROFILED = {("S2D_base", 1), ("S2D_df", 1),
-                 *((m, n) for m in ST_MODELS for n in BASE_BATCHES)}
+# batch-1 step of the first model of phases 19 and 20; phases 17 and 18
+# profile one each.
+BASE_PROFILED = {("S2D_base", 1), ("S2D_df", 1)}
 
 
 def base_case(name):
@@ -3863,6 +3879,306 @@ def phase_base_generation(names, tag, resume=False):
     return out
 
 
+# Phase 22: generic PTQ (models/ptq.py) at the JAX package's working points
+PTQ_SITES = 3 + 2 * N_BLOCKS + 1  # conv_in, 2 downs, the blocks, conv_out
+PTQ_FP32_COSINE = 0.99            # JAX tests/test_ptq.py:71-106
+PTQ_S2D_COSINE, PTQ_S2D_AGREE = 0.98, 0.9  # tests/test_ptq.py:113-150
+RF_ADAPTERS = len(RF_PLANES)      # InstanceNorm launches a ResNetLW forward
+TASK_H, TASK_W = SEG_H, SEG_W     # T2Net's 192×640
+TASK_CPU_REL = 1e-4               # 22c: card against CPU, of the largest
+
+
+def synthetic_image(seed, n, h, w):
+    """``synthetic_calibration_batch`` at the larger side, cropped to h×w,
+    on the card."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models.quantization import (
+        synthetic_calibration_batch)
+
+    full = synthetic_calibration_batch(seed, n, max(h, w))
+    return torch.from_numpy(full[:, :, :h, :w].copy()).cuda()
+
+
+@contextmanager
+def ptq_site_checks(report):
+    """Phase 22a: every int8 conv that generic PTQ runs inside, held against
+    the exact fp64 conv on the same int8 inputs (``torch.equal``); the
+    geometries seen are tallied in ``report``."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import ptq
+    from cycle_depth_estimation_tpu_torch.ops import int8_conv
+
+    real = int8_conv.conv2d_int8
+
+    def checked(x, kernel, stride=1, padding=0, dilation=1, groups=1):
+        got = real(x, kernel, stride, padding, dilation, groups)
+        want = int8_conv.plain_conv2d_int8(x, kernel, stride, padding,
+                                           dilation, groups)
+        kh, kw, cin, cout = kernel.shape
+        what = (f"{kh}x{kw} cin {cin * groups} cout {cout} stride {stride} "
+                f"padding {padding} dilation {dilation} groups {groups} on "
+                f"{tuple(x.shape)}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8 conv {what} differs from the fp64 "
+                                 "conv")
+        rows = got.shape[0] * got.shape[1] * got.shape[2]
+        report["sites"] += 1
+        report["dilated"] += int(max(int8_conv._pair(dilation)) > 1)
+        report["grouped"] += int(groups > 1)
+        report["rows_padded"] += int(rows < int8_conv._INT_MM_MIN_ROWS)
+        report["shapes"].add(what)
+        return got
+
+    with mock.patch.object(ptq, "conv2d_int8", checked), \
+            mock.patch.object(int8_conv, "conv2d_int8", checked):
+        yield
+
+
+def phase_ptq_generator(g, x, y_fp32, earlier_ms, report):
+    """Phase 22, the main path's generator: calibrated on 4 structured
+    images other than ``x``, 22 sites, served int8 (each site checked,
+    22a), cosine against fp32, ms and img/s beside phases 3, 4 and 6; then
+    the ConvTranspose opt-in likewise."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import ptq
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm)
+
+    calib = synthetic_image(2, 4, SIZE, SIZE)
+    out = {}
+    for mode, pred, n_sites in (
+            ("convs", ptq.default_predicate, PTQ_SITES),
+            ("convs and ConvTranspose", lambda k, m: isinstance(m, ptq.CONVS),
+             PTQ_SITES + 2)):
+        with counted(instance_norm, PER_FORWARD, f"ptq calibration, {mode}"):
+            sites = ptq.calibrate_model(g, calib, predicate=pred)
+        if len(sites) != n_sites:
+            raise AssertionError(f"ptq {mode}: {len(sites)} sites, want "
+                                 f"{n_sites}: {list(sites)}")
+        with counted(instance_norm, PER_FORWARD, f"ptq forward, {mode}"), \
+                ptq_site_checks(report):
+            y = ptq.int8_apply(g, sites, x)
+        torch.cuda.synchronize()
+        cos = cosine(y, y_fp32)
+        if not (torch.isfinite(y).all() and cos >= PTQ_FP32_COSINE):
+            raise AssertionError(f"ptq {mode}: cosine vs fp32 {cos}")
+        iters = 5
+        with counted(instance_norm, (iters + 3) * PER_FORWARD,
+                     f"ptq timing, {mode}"):
+            t = ms_per_call(lambda: ptq.int8_apply(g, sites, x), iters=iters)
+        out[mode] = {"sites": n_sites, "cosine": cos, "ms": t,
+                     "img_s": BATCH / t * 1e3}
+        log(f"phase 22: generic PTQ ({mode}) bs{BATCH} {SIZE}^2: {n_sites} "
+            f"sites, cosine vs fp32 {cos:.6f}; {t:.2f} ms/forward = "
+            f"{BATCH / t * 1e3:.1f} img/s (" + ", ".join(
+                f"{k} {v:.2f} ms = {BATCH / v * 1e3:.1f} img/s"
+                for k, v in earlier_ms.items()) + ")")
+    return out
+
+
+def phase_ptq_rf_lw(report):
+    """Phase 22, rf_lw's ResNetLW-101 at 192×576, batch 1: calibrated on
+    'real', served in both domains ('syn' runs its own adapters in float);
+    pred cosine against fp32 in each."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import ptq
+    from cycle_depth_estimation_tpu_torch.models.refinenet import (
+        define_rf_lw_nets)
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm)
+
+    net = define_rf_lw_nets(rf_config(), torch.Generator().manual_seed(0)
+                            )["G"].cuda().eval()
+    calib, x = (synthetic_image(s, 1, RF_H, RF_W) for s in (5, 6))
+    with counted(instance_norm, RF_ADAPTERS, "rf_lw ptq calibration"):
+        sites = ptq.calibrate_model(net, calib, "real")
+    out = {"sites": len(sites)}
+    for domain in ("real", "syn"):
+        with torch.no_grad(), counted(instance_norm, 2 * RF_ADAPTERS,
+                                      f"rf_lw {domain} forwards"):
+            _, pred_fp, _ = net(x, domain)
+            with ptq_site_checks(report):
+                _, pred_q, _ = ptq.int8_apply(net, sites, x, domain)
+        cos = cosine(pred_q, pred_fp)
+        if not (torch.isfinite(pred_q).all() and cos >= PTQ_FP32_COSINE):
+            raise AssertionError(f"rf_lw ptq {domain}: pred cosine {cos}")
+        out[domain] = cos
+    iters = 5
+    with counted(instance_norm, 2 * (iters + 3) * RF_ADAPTERS,
+                 "rf_lw ptq timing"):
+        t_q = ms_per_call(lambda: ptq.int8_apply(net, sites, x, "real"),
+                          iters=iters)
+        with torch.no_grad():
+            t_fp = ms_per_call(lambda: net(x, "real"), iters=iters)
+    out.update(ms=t_q, fp32_ms=t_fp)
+    log(f"phase 22: generic PTQ rf_lw ResNetLW-101 bs1 {RF_H}x{RF_W}: "
+        f"{len(sites)} sites; pred cosine vs fp32 real {out['real']:.6f}, "
+        f"syn {out['syn']:.6f}; {t_q:.2f} ms/forward int8, {t_fp:.2f} fp32")
+    return out
+
+
+def phase_ptq_s2d(report):
+    """Phase 22, the S2D chain G_1 → G_2 (DenseNet-169) → R_D at 192×576,
+    batch 1: each net calibrated on its fp32 input from one image, the
+    chain served int8 on another; depth and seg cosine against fp32 and
+    the seg argmax agreement."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import ptq
+    from cycle_depth_estimation_tpu_torch.models.s2d_networks import (
+        define_s2d_nets)
+
+    nets = define_s2d_nets(s2d_config(), torch.Generator().manual_seed(0))
+    g1, g2, rd = (nets[k].cuda().eval() for k in ("G_1", "G_2", "R_D"))
+    calib, x = (synthetic_image(s, 1, S2D_H, S2D_W) for s in (7, 8))
+    with torch.no_grad():
+        y_c = g1(calib)
+        psp_c, feats_c = g2(y_c, "S")
+        y = g1(x)
+        psp, feats = g2(y, "S")
+        _, seg_fp, (_, dep_fp) = rd(feats, psp)
+    sites = [ptq.calibrate_model(g1, calib), ptq.calibrate_model(g2, y_c, "S"),
+             ptq.calibrate_model(rd, feats_c, psp_c)]
+    with ptq_site_checks(report):
+        y_q = ptq.int8_apply(g1, sites[0], x)
+        psp_q, feats_q = ptq.int8_apply(g2, sites[1], y_q, "S")
+        _, seg_q, (_, dep_q) = ptq.int8_apply(rd, sites[2], feats_q, psp_q)
+    out = {"sites": [len(s) for s in sites], "depth": cosine(dep_q, dep_fp),
+           "seg": cosine(seg_q, seg_fp),
+           "agree": float((seg_q.argmax(1) == seg_fp.argmax(1)).double()
+                          .mean())}
+    if not (out["depth"] >= PTQ_S2D_COSINE and out["seg"] >= PTQ_S2D_COSINE
+            and out["agree"] > PTQ_S2D_AGREE):
+        raise AssertionError(f"S2D chain ptq: {out}")
+    log(f"phase 22: generic PTQ S2D chain bs1 {S2D_H}x{S2D_W}: sites "
+        f"{out['sites']}; depth cosine {out['depth']:.6f}, seg cosine "
+        f"{out['seg']:.6f}, seg argmax agreement {out['agree']:.4f}")
+    return out
+
+
+def phase_ptq_cli(g):
+    """Phase 22b: the test CLI in process, ``--model test --model_suffix
+    _A --int8 --device cuda`` on the generator saved as a run's
+    ``latest_net_G_A.pth``: the gallery and the site count."""
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm)
+    from cycle_depth_estimation_tpu_torch.test import main as test_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        os.makedirs(os.path.join(tmp, "ck", "smoke"))
+        rng = np.random.RandomState(1)
+        for i in range(4):
+            Image.fromarray(rng.randint(0, 256, (SIZE, SIZE, 3), np.uint8)
+                            ).save(os.path.join(data, f"im{i}.png"))
+        torch.save({k: v.cpu() for k, v in g.state_dict().items()},
+                   os.path.join(tmp, "ck", "smoke", "latest_net_G_A.pth"))
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed), \
+                counted(instance_norm, 5 * PER_FORWARD, "test CLI --int8"):
+            web_dir = test_main([
+                "--dataroot", data, "--checkpoints_dir",
+                os.path.join(tmp, "ck"), "--name", "smoke", "--model", "test",
+                "--model_suffix", "_A", "--int8", "--netG",
+                f"resnet_{N_BLOCKS}blocks", "--ngf", str(NGF), "--fine_size",
+                str(SIZE), "--results_dir",
+                os.path.join(tmp, "results"), "--device", "cuda"])
+        text = printed.getvalue()
+        images = sorted(os.listdir(os.path.join(web_dir, "images")))
+        said = f"int8 serving: {PTQ_SITES} conv sites quantized"
+        if said not in text or "no checkpoint" in text or len(images) != 8:
+            raise AssertionError(f"test CLI --int8: {images}\n{text[-2000:]}")
+    log(f"phase 22b ok: python -m cycle_depth_estimation_tpu_torch.test "
+        f"--model test --model_suffix _A --int8 --device cuda served "
+        f"latest_net_G_A.pth: '{said}', {len(images)} images")
+
+
+def phase_task_nets():
+    """Phase 22c: ResGenerator and PreUNet16 at 192×640, ngf 64, batch 1,
+    the MultiscaleDiscriminator (ndf 64, 2 scales) on the image and the
+    FeatureDiscriminator (512×12×40) on PreUNet16's center features, each
+    the card's forward against the CPU's with the same weights. The
+    weights are xavier at gain 1 (the factories' 0.02 shrinks the outputs
+    toward fp32's subnormals, 1e-31 at the FeatureDiscriminator)."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.models import seg_network as sn
+    from cycle_depth_estimation_tpu_torch.ops.init import (init_tensor,
+                                                           init_weights)
+
+    gen = torch.Generator().manual_seed(0)
+    nets = {"ResGenerator": sn.define_task_G(model_type="ResNet",
+                                             generator=gen),
+            "PreUNet16": sn.define_task_G(model_type="PreUNet16",
+                                          generator=gen),
+            "MultiscaleDiscriminator": sn.define_task_D(num_d=2,
+                                                        generator=gen),
+            "FeatureDiscriminator": sn.define_feature_D(
+                feature_hw=(TASK_H // 16, TASK_W // 16), generator=gen)}
+    for net in nets.values():
+        init_weights(net, "xavier", 1.0, gen)
+        for m in net.modules():
+            if isinstance(m, torch.nn.Linear):
+                init_tensor(m.weight, "xavier", 1.0, gen)
+    x = synthetic_image(9, 1, TASK_H, TASK_W).cpu()
+    errs = {}
+    with torch.no_grad():
+        for name, net in nets.items():
+            net.eval()
+            inp = x if name != "FeatureDiscriminator" else center
+            want = net(inp)
+            if name == "PreUNet16":
+                center = want[0]
+            got = copy.deepcopy(net).cuda()(inp.cuda())
+            want = want if isinstance(want, list) else [want]
+            got = got if isinstance(got, list) else [got]
+            top = max(float(w.abs().max()) for w in want)
+            err = max(float((g_.cpu() - w).abs().max())
+                      for g_, w in zip(got, want))
+            shapes = [tuple(w.shape) for w in want]
+            if not (err <= TASK_CPU_REL * top and all(
+                    torch.isfinite(g_).all() for g_ in got)):
+                raise AssertionError(f"{name}: card vs CPU {err} of {top}")
+            errs[name] = err / top
+            log(f"phase 22c: {name} {shapes}: card vs CPU max abs "
+                f"{err:.3g} ({err / top:.2e} of the largest)")
+    return errs
+
+
+def phase_ptq(g, x, y_fp32, earlier_ms):
+    """Phases 22–22c; returns what the summary reports."""
+    import torch
+
+    report = {"sites": 0, "dilated": 0, "grouped": 0, "rows_padded": 0,
+              "shapes": set()}
+    out = {"generator": phase_ptq_generator(g, x, y_fp32, earlier_ms,
+                                            report)}
+    torch.cuda.empty_cache()
+    out["rf_lw"] = phase_ptq_rf_lw(report)
+    torch.cuda.empty_cache()
+    out["s2d"] = phase_ptq_s2d(report)
+    torch.cuda.empty_cache()
+    log(f"phase 22a ok: {report['sites']} int8 convs on the PTQ paths' own "
+        f"inputs torch.equal to the fp64 conv ({report['dilated']} dilated, "
+        f"{report['grouped']} grouped, {report['rows_padded']} with 16 GEMM "
+        f"rows or fewer; {len(report['shapes'])} geometries)")
+    phase_ptq_cli(g)
+    out["task_nets"] = phase_task_nets()
+    log("phase 22 ok")
+    return out
+
+
 LOADERS = {  # name: the train CLI's loader flags
     "serial": ["--num_threads", "0"],
     "4 threads (the default)": ["--num_threads", "4"],
@@ -3983,7 +4299,21 @@ def main() -> int:
                    "fused int8, int8_phases ups": fwd_up["int8_phases"]})
     serving = {"instance_norm": instance_norm.launches,
                "int8_epilogue": fused_in_epilogue.launches}
-    del g, y_fp32, fwd_bf16, fwd_int8, fwd_up
+    del fwd_bf16, fwd_int8, fwd_up
+    torch.cuda.empty_cache()
+
+    instance_norm.launches = 0
+    fused_in_epilogue.launches = 0
+    t_ptq = time.perf_counter()
+    ptq_out = phase_ptq(g, x, y_fp32, {
+        f"phase {k}": BATCH / v * 1e3 for k, v in (
+            ("3 fp32", ips_fp32), ("4 bf16", ips_bf16),
+            ("6 fused int8", ips_int8))})
+    ptq_path = {"instance_norm": instance_norm.launches}
+    if fused_in_epilogue.launches:
+        raise AssertionError("generic PTQ launched the epilogue kernel")
+    log(f"phase 22: {time.perf_counter() - t_ptq:.1f} s")
+    del g, y_fp32
     torch.cuda.empty_cache()
 
     instance_norm.launches = 0
@@ -4042,7 +4372,7 @@ def main() -> int:
     base = phase_base_generation(BASE_MODELS, "19")
     two_trunk = phase_base_generation(TWO_TRUNK, "20",
                                       resume=True)
-    st = phase_base_generation(ST_MODELS, "21", resume=True)
+    st = phase_base_generation(ST_MODELS, "21")
     rf_cli = start_rf_lw_cli()  # beside phase 18b's checks
     try:
         rf, rf_lw = counts_of(lambda: phase_rf_lw(rf_cli))
@@ -4053,7 +4383,8 @@ def main() -> int:
              "remat_and_plain": remat,
              "seg_cycle": seg_cycle, "t2net": t2net, "rf_lw": rf_lw}
     for path, counts in (("serving", serving), ("training", training),
-                         ("pix2pix", pix2pix), *later.items()):
+                         ("pix2pix", pix2pix), ("ptq", ptq_path),
+                         *later.items()):
         for name, n in counts.items():
             if n == 0:
                 raise AssertionError(f"{name} was not launched on the "
@@ -4077,11 +4408,12 @@ def main() -> int:
         {"name": "instance_norm", "route": "triton", "source": in_source,
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/instance_norm.py:55",
          "launches": (serving["instance_norm"] + training["instance_norm"]
-                      + pix2pix["instance_norm"]
+                      + pix2pix["instance_norm"] + ptq_path["instance_norm"]
                       + sum(c["instance_norm"] for c in later.values())),
          "launches_by_path": {"serving": serving["instance_norm"],
                               "training": training["instance_norm"],
                               "pix2pix": pix2pix["instance_norm"],
+                              "ptq": ptq_path["instance_norm"],
                               **{p: c["instance_norm"]
                                  for p, c in later.items()}},
          "max_abs_err": max(in_err, rf_errs[0]),
@@ -4116,6 +4448,9 @@ def main() -> int:
     log(f"generator img/s: fp32 {ips_fp32:.1f}, bf16 {ips_bf16:.1f}, fused "
         f"int8 {ips_int8:.1f}, "
         + ", ".join(f"{m} {v:.1f}" for m, v in ips_up.items())
+        + ", generic PTQ int8 " + ", ".join(
+            f"({m}) {v['img_s']:.1f}"
+            for m, v in ptq_out["generator"].items())
         + f"; CycleGAN training fp32 {ips_train:.1f} img/s, pix2pix "
         f"training fp32 {ips_p2p:.1f} img/s (bs{BATCH}, {SIZE}^2), bf16 "
         + ", ".join(f"{k} {v:.1f}" for k, v in ips_bf16_train.items())

@@ -6,8 +6,10 @@ the same field names, defaults, reference flag aliases (``--loadSize``,
 ``--netD``, ``--lambda_A`` …) and two-phase parse (base flags, then
 per-model defaults for flags the user did not set). ``device`` is new: the
 port runs on ``cuda`` unless told ``cpu``; ``pth_path`` is the flag the JAX
-CLI parses by hand. Flags of slices not ported yet are absent, so argparse
-rejects them.
+CLI parses by hand. ``tpu_precision`` keeps the JAX name so that a JAX
+command line runs unchanged: ``highest`` turns off cuDNN's and matmul's TF32
+(``device.set_precision``). Flags of slices not ported yet are absent, so
+argparse rejects them.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ _FLAG_ALIASES = {
     "lambda_L1": "lambda_l1",
     "lr_D": "lr_d",
 }
+
+# fields that take one of a few values
+_CHOICES = {"tpu_precision": ("default", "highest")}
 
 
 @dataclass
@@ -148,6 +153,9 @@ class Config:
     seed: int = 0
     device: str = "cuda"            # 'cuda' | 'cpu'
     pth_path: str = ""              # reference generator .pth; "" = random init
+    model_suffix: str = ""          # test model: serve <epoch>_net_G<suffix>
+    int8: bool = False              # test CLI: serve the generator int8 (PTQ)
+    tpu_precision: str = "default"  # 'default' | 'highest' (TF32 off)
 
     def expr_dir(self) -> str:
         return os.path.join(self.checkpoints_dir, self.name)
@@ -215,7 +223,8 @@ def parse_args(argv: Optional[List[str]] = None, is_train: bool = True) -> Confi
                                     type=inner, default=None)
         else:
             parser.add_argument("--" + f.name, *aliases, dest=f.name,
-                                type=type(default), default=None)
+                                type=type(default), default=None,
+                                choices=_CHOICES.get(f.name))
     ns = parser.parse_args(argv)
     explicit = {k for k, v in vars(ns).items() if v is not None}
     cfg = base.replace(**{k: v for k, v in vars(ns).items() if v is not None})

@@ -41,7 +41,9 @@ images the test split's refined depths go to ``<run>/pred/`` (the
 a failure there is printed ("[kitti eval] skipped") and training goes on.
 ``--dtype bfloat16`` trains every model in bf16 with fp32 parameters;
 ``--remat`` recomputes the generator forwards in backward (``cycle_gan``)
-or the G_2 and R_D applications (``S2D``).
+or the G_2 and R_D applications (``S2D``). ``--tpu_precision highest``
+turns off TF32 in cuDNN's convs and cuBLAS's matmuls (torch's default lets
+cuDNN take TF32).
 
 Epochs ``epoch_count … niter + niter_decay``: a train step per batch, with
 losses printed and logged every ``print_freq`` images, visuals saved every
@@ -69,12 +71,13 @@ def main(argv=None):
     from .data import create_dataloader
     from .data.device_transforms import wrap_for_config
     from .data.loader import prefetch_to_device
-    from .device import resolve_device
+    from .device import resolve_device, set_precision
     from .models import create_model
     from .utils.visualizer import Visualizer
 
     cfg = parse_args(argv, is_train=True)
     device = resolve_device(cfg.device)
+    set_precision(cfg.tpu_precision)
     torch.manual_seed(cfg.seed + 1)
 
     def to_device(loader, aug_cfg, seed):

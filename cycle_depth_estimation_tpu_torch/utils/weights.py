@@ -20,7 +20,10 @@ takes instance norm only; the port's converter takes BatchNorm too):
   ``num_batches_tracked`` is left out, as in a pre-0.4.1 reference ``.pth``;
 - PReLU: the network's one ``prelu_alpha`` → every state-dict key of the
   shared module (``….weight`` under each block that holds it); a net with
-  ``site_prelus`` (S2D's ``SDiscriminator``) names each α.
+  ``site_prelus`` (S2D's ``SDiscriminator``, T2Net's
+  ``MultiscaleDiscriminator``: ``scale{i}.prelu_alpha``) names each α;
+- Linear (a net's ``site_denses``, T2Net's ``FeatureDiscriminator``): the
+  flax ``Dense`` kernel is (in, out), the torch weight (out, in).
 
 ``s2d_state_dicts_from_jax`` is the inverse of ``import_g1``,
 ``import_general_net``, ``import_rdep`` and ``import_sdiscriminator``;
@@ -45,9 +48,12 @@ importer: it is held against the JAX module in its test);
 module's outputs).
 
 The seg nets (T2Net's ``UNetGenerator``, SegCycle's ``UNetEncoder`` and
-``UNetDecoder``) have no JAX importer and no reference ``.pth`` here: their
-converters are held against the JAX modules' outputs, and the outer names
-of their state dicts against nothing (``models/seg_network.py``).
+``UNetDecoder``, and ``ResGenerator``, ``Discriminator``,
+``MultiscaleDiscriminator`` and ``FeatureDiscriminator``) have no JAX
+importer and no reference ``.pth`` here: their converters are held against
+the JAX modules' outputs, and the outer names of their state dicts against
+nothing (``models/seg_network.py``). ``PreUNet16`` is also held through
+the JAX package's ``import_preunet16``.
 """
 
 from __future__ import annotations
@@ -134,12 +140,17 @@ def _state_dict_from_jax(shell: nn.Module, params: Mapping[str, Any],
         sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _t(p["scale"]), _t(p["bias"])
         sd[f"{prefix}.running_mean"] = _t(s["mean"])
         sd[f"{prefix}.running_var"] = _t(s["var"])
+    for site, module in getattr(shell, "site_denses", dict)().items():
+        entry, prefix = _lookup(params, site), names[module]
+        sd[f"{prefix}.weight"] = torch.tensor(
+            np.ascontiguousarray(np.asarray(entry["kernel"], np.float32).T))
+        sd[f"{prefix}.bias"] = _t(entry["bias"])
     alphas = {m: site for site, m in
               getattr(shell, "site_prelus", dict)().items()}
     for name, module in shell.named_modules(remove_duplicate=False):
         if isinstance(module, PReLU):
-            sd[f"{name}.weight"] = _t(params[alphas.get(module,
-                                                        "prelu_alpha")])
+            sd[f"{name}.weight"] = _t(_lookup(params, alphas.get(
+                module, "prelu_alpha")))
     return sd
 
 
@@ -231,8 +242,9 @@ def pix2pix_state_dicts_from_jax(params: Mapping[str, Any],
 def jax_variables_from_net(net: nn.Module) -> Tuple[dict, dict]:
     """The other way: a port net's parameters and BatchNorm statistics as
     the JAX module's ``params`` and ``batch_stats`` trees (numpy leaves,
-    HWIO kernels), by ``site_convs``/``site_norms``; the shared PReLU α as
-    ``prelu_alpha``."""
+    HWIO kernels), by ``site_convs``/``site_norms`` (and ``site_denses``:
+    (in, out) kernels); the PReLU αs by ``site_prelus``, else the shared
+    one as ``prelu_alpha``."""
     params: dict = {}
     stats: dict = {}
 
@@ -257,6 +269,14 @@ def jax_variables_from_net(net: nn.Module) -> Tuple[dict, dict]:
                                         "bias": arr(m.bias)}})
             put(stats, site, {"norm": {"mean": arr(m.running_mean),
                                        "var": arr(m.running_var)}})
+    for site, m in getattr(net, "site_denses", dict)().items():
+        put(params, site, {"kernel": arr(m.weight).T.copy(),
+                           "bias": arr(m.bias)})
+    prelus = getattr(net, "site_prelus", dict)()
+    for site, m in prelus.items():
+        put(params, site, arr(m.weight))
+    if prelus:
+        return params, stats
     for m in net.modules():
         if isinstance(m, PReLU):
             params["prelu_alpha"] = arr(m.weight)

@@ -246,6 +246,9 @@ def test_unet_encoder_decoder_match_jax(train):
 
 
 def test_define_task_g_takes_unet_only():
+    """The UNet by default; 'ResNet' and 'PreUNet16' (ported since, held
+    in ``test_torch_port_seg_network_parts.py``) build their nets; another
+    model type raises."""
     net = psn.define_task_G(ngf=8, norm="instance")
     assert isinstance(net, psn.UNetGenerator)
     # one α for the whole net, under many names
@@ -253,9 +256,12 @@ def test_define_task_g_takes_unet_only():
         len({id(p) for p in net.parameters()})
     assert sum(1 for k in net.state_dict() if k.endswith("3.weight")
                and "conv1" in k) == 1
-    for kind in ("ResNet", "PreUNet16"):
-        with pytest.raises(NotImplementedError, match="A4b"):
-            psn.define_task_G(model_type=kind)
+    assert isinstance(psn.define_task_G(ngf=8, model_type="ResNet"),
+                      psn.ResGenerator)
+    assert isinstance(psn.define_task_G(model_type="PreUNet16"),
+                      psn.PreUNet16)
+    with pytest.raises(NotImplementedError, match="model type"):
+        psn.define_task_G(model_type="VGG")
 
 
 # ---------------------------------------------------------------------------

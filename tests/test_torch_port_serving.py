@@ -187,7 +187,8 @@ def test_port_imports_nothing_of_jax():
                 "tools/save_kitti.py", "tools/eval_kitti.py",
                 "utils/metrics.py", "models/s2d_base.py", "models/s2d_alt.py",
                 "models/s2d_df.py", "models/s2d_nd.py",
-                "models/semantic_trans.py", "models/semantic_trans_full.py"):
+                "models/semantic_trans.py", "models/semantic_trans_full.py",
+                "models/ptq.py"):
         assert port / new in files, new
     for path in files:
         for mod in _imported_modules(path):

@@ -164,6 +164,9 @@ def test_flags_of_later_slices_are_rejected(flag):
         assert parse_args([flag, "1e-3"]).adam_eps == 1e-3
         assert parse_args([]).adam_eps == 1e-8
         return
+    if flag == "--int8":  # ported since: the test CLI's generic PTQ
+        assert parse_args([flag]).int8 and not parse_args([]).int8
+        return
     if flag in ("--kitti_gt_dir", "--eval_freq", "--records_file"):
         # ported since: the in-loop KITTI validation
         field = flag[2:]
@@ -172,7 +175,7 @@ def test_flags_of_later_slices_are_rejected(flag):
         assert getattr(parse_args([]), field) == default
         return
     with pytest.raises(SystemExit):
-        parse_args([flag, "1"] if flag != "--int8" else [flag])
+        parse_args([flag, "1"])
 
 
 def test_reference_flag_aliases():
@@ -397,3 +400,97 @@ def test_semantic_trans_train_cli_trains_and_resumes(model, tmp_path):
                                  tmp_path, logged, visual)
     assert m.model_names == tuple(ST_NETS[model])
     assert files == {f"2_net_{k}.pth" for k in ST_NETS[model]}
+
+
+# ---------------------------------------------------------------------------
+# the test CLI: --int8, --model_suffix, --tpu_precision
+# ---------------------------------------------------------------------------
+
+
+def test_test_cli_int8_calibrates_and_writes_the_gallery(root, tmp_path,
+                                                         capsys):
+    from cycle_depth_estimation_tpu_torch.test import main as test_main
+
+    args = ["--dataroot", str(root / "testA"), "--netG", "resnet_3blocks",
+            "--ngf", "4", "--fine_size", "32", "--device", "cpu",
+            "--results_dir", str(tmp_path / "results")]
+    web_dir = test_main(args + ["--int8", "--name", "int8"])
+    out = capsys.readouterr().out
+    # conv_in, 2 downs, 3 blocks × 2, conv_out; the ups stay float
+    assert "int8 serving: 10 conv sites quantized" in out
+    images = sorted(os.listdir(os.path.join(web_dir, "images")))
+    assert images == ["img_000_fake_B.png", "img_000_real_A.png",
+                      "img_001_fake_B.png", "img_001_real_A.png"]
+    fp32_dir = test_main(args + ["--name", "fp32"])
+    assert "conv sites quantized" not in capsys.readouterr().out
+    int8_img = np.asarray(Image.open(os.path.join(
+        web_dir, "images", "img_000_fake_B.png")), np.float64)
+    fp32_img = np.asarray(Image.open(os.path.join(
+        fp32_dir, "images", "img_000_fake_B.png")), np.float64)
+    assert 0 < np.abs(int8_img - fp32_img).mean() < 8
+
+
+def test_test_cli_int8_needs_a_generator():
+    from cycle_depth_estimation_tpu_torch.test import _served_net
+
+    class NoGenerator:
+        cfg = Config(model="seg")
+
+    with pytest.raises(SystemExit, match="no generator net_G"):
+        _served_net(NoGenerator(), None)
+
+
+def test_test_cli_serves_a_cycle_gan_run_by_model_suffix(root, tmp_path,
+                                                         capsys):
+    """``--model test --model_suffix _A`` loads a port cycle_gan run's
+    ``latest_net_G_A.pth`` by name (JAX ``TestModel``: net ``"G" +
+    model_suffix``), and serves it, int8 too."""
+    from cycle_depth_estimation_tpu_torch.models import create_model
+    from cycle_depth_estimation_tpu_torch.test import main as test_main
+
+    train_main(["--dataroot", str(root), "--checkpoints_dir", str(tmp_path),
+                "--name", "tiny", "--device", "cpu", *_TINY])
+    capsys.readouterr()
+    serve = ["--dataroot", str(root / "testA"), "--checkpoints_dir",
+             str(tmp_path), "--name", "tiny", "--netG", "resnet_3blocks",
+             "--ngf", "4", "--fine_size", "32", "--device", "cpu",
+             "--results_dir", str(tmp_path / "results")]
+    for suffix in ("_A", "_B"):
+        cfg = parse_args(serve + ["--model_suffix", suffix], is_train=False)
+        model = create_model(cfg)
+        assert model.model_names == ("G" + suffix,)
+        assert model.has_checkpoint("latest")
+        model.load_nets(None, "latest")
+        saved = torch.load(tmp_path / "tiny" / f"latest_net_G{suffix}.pth")
+        for k, v in model.net_G.state_dict().items():
+            assert torch.equal(v, saved[k]), k
+    web_dir = test_main(serve + ["--model", "test", "--model_suffix", "_A",
+                                 "--int8"])
+    out = capsys.readouterr().out
+    assert "no checkpoint" not in out and "10 conv sites" in out
+    assert len(os.listdir(os.path.join(web_dir, "images"))) == 4
+    test_main(serve + ["--model_suffix", "_C"])
+    assert "no checkpoint given" in capsys.readouterr().out
+
+
+def test_tpu_precision_highest_turns_tf32_off(root, tmp_path, monkeypatch):
+    from cycle_depth_estimation_tpu_torch.device import set_precision
+    from cycle_depth_estimation_tpu_torch.test import main as test_main
+
+    for field in ("int8", "model_suffix", "tpu_precision"):
+        assert getattr(Config(), field) == getattr(JaxConfig(), field)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    set_precision("default")
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+    test_main(["--dataroot", str(root / "testA"), "--netG", "resnet_3blocks",
+               "--ngf", "4", "--fine_size", "32", "--device", "cpu",
+               "--num_test", "1", "--tpu_precision", "highest",
+               "--results_dir", str(tmp_path / "results")])
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    with pytest.raises(ValueError):
+        set_precision("high")
+    with pytest.raises(SystemExit):
+        parse_args(["--tpu_precision", "high"])
