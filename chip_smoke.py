@@ -102,8 +102,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    resume beside 17c/17d: bf16 and ``--remat`` first steps against fp32
    at batch 8 (losses within 5e-2, resp. 1e-6; with --remat every
    BatchNorm moved once; the peak memory of each). 17a: the step timed
-   at batch 1 and 8 (ms, img/s, peak memory) and the batch-1 step
-   profiled (idle share, the ten largest kernels). S2D runs no
+   at batch 1 and 8 (ms, img/s, peak memory). S2D runs no
    InstanceNorm or epilogue kernel: the phase fails if either count moved.
 
 Every CLI process runs in a session of its own: it fails the phase if a
@@ -128,7 +127,7 @@ generations, where they must stay 0) and 18b (rf_lw).
    version) against the plain versions and F.instance_norm, by phase 8's
    yardstick, 8 + 8 launches a step, the unused ``_s`` adapters unmoved;
    an rf_lw7 step and a bf16 step (losses within 5e-2 of fp32); the step
-   timed at batch 1 and 8 and profiled at 8. 18c, beside 18b's checks: the
+   timed at batch 1 and 8. 18c, beside 18b's checks: the
    train CLI ``--model rf_lw --kitti_gt_dir … --eval_freq 1`` on a
    synthetic try tree for 2 steps (a records line each step, with every
    KITTI metric), then ``save_kitti`` from its ``latest`` checkpoint and
@@ -145,11 +144,9 @@ generations, where they must stay 0) and 18b (rf_lw).
    CPU's input, its losses within 1e-3 and the nets it updates by the three
    checks; the whole step's sign-flipped first updates reported. 19b: a
    bf16 first step against fp32 (losses within 5e-2). 19c: the step timed
-   at batch 1 and 8 (or, where 8 does not fit, the largest of 4 and 2),
-   S2D_base's batch-1 step profiled. 19d, beside 19a: ``python -m
-   ...train`` for each model on vKITTI-sized PNGs, two steps, each in a
-   session of its own; the nets load back. Neither model has an
-   InstanceNorm: the kernel counts must not move in phase 19.
+   at batch 1 and 8 (or, where 8 does not fit, the largest of 4 and 2).
+   Neither model has an InstanceNorm: the kernel counts must not move in
+   phase 19. (The train CLIs of phases 19–21 run in the CPU tests.)
 20. The two-trunk generation, ``--model S2D_df``, ``--model S2D_nd`` and
    ``--model S2D_nd --nd_4dis``, at the JAX package's full width (two
    DenseNet-169 GeneralNet2 trunks; S2D_df: SEGDF, DEPDF and the 512-channel
@@ -159,15 +156,13 @@ generations, where they must stay 0) and 18b (rf_lw).
    with the same penalty alphas (drawn on the CPU from the seed and the
    step); S2D_nd's critic is piecewise linear and its BCE ill-conditioned
    near its clamp, so the phases that differentiate it (D1, G_2, D2) and
-   its whole step, at two seeds, are held with the BCE's slope and the D
+   its whole step are held with the BCE's slope and the D
    phases' critic inputs taken from the CPU (``CriticPins``), the trunks'
    features and the critic's outputs held apart, and reported unpinned
    beside the card's float64 phase and step; 20b bf16 against fp32, each
    loss as the step first computes it and as it ends (S2D_nd's second D
-   phase from the fp32 step's input to it); 20c timed, S2D_df's batch-1
-   step profiled; 20d
-   the three train CLIs, two steps each and a resume for a third. No
-   InstanceNorm or epilogue launch may happen in phase 20.
+   phase from the fp32 step's input to it); 20c timed. No InstanceNorm or
+   epilogue launch may happen in phase 20.
 21. The semantic_trans generation, ``--model semantic_trans`` (S2D's nets
    with the truncated band criterion, the four StarDiscriminator critics,
    the WGAN-GP penalty on DIS and the clipped Adam of Dis_160/Dis_320)
@@ -185,8 +180,8 @@ generations, where they must stay 0) and 18b (rf_lw).
    the CPU's input to phase D; 21b bf16 against fp32 (semantic_trans_full's
    phase D from the fp32 step's input with the features Dis0_en reads
    taken from the fp32 step, and reported without them); 21c timed at
-   batch 1 and 8; 21d both train CLIs, two steps each.
-   No InstanceNorm or epilogue launch may happen in phase 21.
+   batch 1 and 8. No InstanceNorm or epilogue launch may happen in phase
+   21.
 22. Generic PTQ (``models/ptq.py``) at the JAX package's working points,
    run after phase 7 with its own launch counts (the path ``ptq``), TF32
    off: the main path's generator (9 blocks, ngf 64, batch 8, 256²)
@@ -205,9 +200,28 @@ generations, where they must stay 0) and 18b (rf_lw).
    the MultiscaleDiscriminator (2 scales) and the FeatureDiscriminator
    (512×12×40), the card's forward against the CPU's within 1e-4 of the
    largest output.
+23. Data, ZeRO and tensor parallelism (``parallel/``), last. 23a: the
+   train CLI on phase 8's CycleGAN (two 9-block generators, ngf 64, 256²,
+   batch 8, fp32, TF32 off), two steps, run plain twice and then with
+   ``--parallel dp`` in a world of one over NCCL (``--coordinator_address``):
+   its saved state ``torch.equal`` to the plain run's, or, where the two
+   plain runs differ (cuDNN's backward), within twice that; both second
+   steps' times. 23b: one spawn of two ranks sharing the card over gloo
+   runs the same CycleGAN at global batch 8 (4 rows a rank) under ``dp``,
+   ``--zero opt``, ``--zero fsdp`` and ``--mesh_shape 1 2 --parallel tp``
+   (both ranks all 8 rows, the trunk's planes (8, 128, 64, 64)), each
+   against the single-process step on the card from the same seed, TF32
+   off and Adam's eps 1e-3 on both sides: synced generator gradients
+   within 1e-5 of the largest (where two one-process runs differ past
+   that, within 3× their L2 distance), losses within 1e-4, parameters by
+   the three pooled checks, the ranks' parameters equal, 192 + 192
+   InstanceNorm launches a rank a step, each rank's ``memory_report`` and
+   the bytes it holds; and S2D at batch 2 (a row a rank), 192×576, under
+   ``dp``, each phase from the one-process state and input before it (as
+   17b holds the card against the CPU): its losses within 1e-3, every net
+   by the three checks at its own lr. No scaling
+   figure: two ranks on one card measure none.
 
-Phases 17a, 18b, 19c and 20c profile one step each (17a, 19c and 20c
-their first model's batch-1 step, 18b its batch-8 step).
 
 The last three lines
 are a JSON object with every kernel's numbers, the card's name and power
@@ -2492,7 +2506,7 @@ def phase_s2d():
     mid_nc 1024, 3 dual blocks in G_1), 192×576, fp32 with TF32 off. 17b
     card vs CPU at batch 1, with the S2D train CLI on vKITTI-sized files
     beside it; 17c/17d bf16 and --remat against fp32 at batch 8, beside
-    the CLI's resume; 17a the step timed at batch 1 and 8 and profiled.
+    the CLI's resume; 17a the step timed at batch 1 and 8.
     S2D runs no InstanceNorm or epilogue kernel: their counts must not
     move."""
     import torch
@@ -2530,8 +2544,6 @@ def phase_s2d():
         log(f"phase 17a: S2D train step bs{n} {S2D_H}x{S2D_W} fp32 (TF32 "
             f"off): {dt * 1e3:.1f} ms/step = {n / dt:.2f} img/s; peak memory "
             f"{peak / 2 ** 30:.2f} GiB")
-        if n == S2D_BATCHES[0]:
-            profile_step(f"phase 17a bs{n}", model, state, batch)
         out[f"bs{n}"] = {"ms": dt * 1e3, "img_s": n / dt, "peak": peak}
         del model, state, batch
         torch.cuda.empty_cache()
@@ -2898,9 +2910,8 @@ def phase_rf_lw(cli):
     classes), 192×576, fp32 with TF32 off: at batch 1 and 8 one step
     through the kernels against the plain versions and F.instance_norm
     (``rf_compare``), 8 + 8 launches a step; rf_lw7 and bf16 steps; then
-    the step timed at batch 1 and 8 (ms, img/s, peak memory) and profiled
-    (idle share, top kernels, the InstanceNorm kernels beside their
-    bounds). ``cli`` (phase 18c's train CLI) runs beside the untimed
+    the step timed at batch 1 and 8 (ms, img/s, peak memory). ``cli``
+    (phase 18c's train CLI) runs beside the untimed
     checks and is ended, with the KITTI tools after it, before the
     timing."""
     import torch
@@ -2932,9 +2943,6 @@ def phase_rf_lw(cli):
             + ", ".join(f"{k} {v / 1e9:.1f} GFLOP" for k, v in flops.items())
             + f"; {params / 1e6:.1f} M parameters) = "
             f"{total / dt / 1e12:.1f} TFLOP/s")
-        if n == RF_BATCHES[-1]:
-            profile_step(f"phase 18b bs{n}", model, state, batches[n],
-                         rf_shapes(n))
         out[f"bs{n}"] = {"ms": dt * 1e3, "img_s": n / dt, "peak": peak}
         del model, state
         torch.cuda.empty_cache()
@@ -2958,7 +2966,6 @@ BASE_WIDTHS = {k: {} for k in BASE_TAG}  # overrides; empty: full width
 BASE_BATCHES = (1, 8)
 BASE_FALLBACK_BATCHES = (4, 2)  # timed in turn where batch 8 does not fit
 BASE_BF16_BATCH = 2
-BASE_CLI_SIZE = (1242, 375)     # the CLI's vKITTI-sized files (w, h)
 BASE_UPDATES = {
     "S2D_base": {"real": (), "G": ("G_1", "G_2"), "frozen": (),
                  "Seg": ("Seg_de",), "Dep": ("Dep_de",), "D": ("Dis_en",)},
@@ -2999,8 +3006,8 @@ TRUNKS = ("G_1", "G_2")
 PIN_OUT_REL = 1e-4  # the critic's outputs, card vs CPU, of the largest
 # The unpinned whole step's losses that read the first D phase's update
 # (S2D_nd's G_2 phase and its second D phase): 20a reports them beside the
-# CPU's and the card's distances from the card's float64 step, at each of
-# ``BASE_SEEDS`` (the pinned step holds them); 20b holds the second D
+# CPU's and the card's distances from the card's float64 step (the pinned
+# step holds them); 20b holds the second D
 # phase from the fp32 step's input to it and reports its losses' end
 # values (G_2's losses are computed once and held).
 BASE_REPORTED = {"S2D_nd": ("G_2", "G2_dis", "D_syn", "D_real", "gp"),
@@ -3011,7 +3018,6 @@ BASE_REPORTED = {"S2D_nd": ("G_2", "G2_dis", "D_syn", "D_real", "gp"),
                  # CPU against CPU with oneDNN on and off); 21a holds them
                  # from the CPU's input to phase D
                  "semantic_trans_full": ("D_real", "D_syn", "DEP_syn")}
-BASE_SEEDS = {"S2D_nd": (0, 1)}  # 20a's whole step: model seed (batch: 17+)
 # The phase of a semantic_trans model whose DIS (LeakyReLU all the way, its
 # penalty a double backward through it in semantic_trans) reads R_D's
 # depth: 21a records the signs of DIS's LeakyReLU inputs in that phase on
@@ -3037,10 +3043,6 @@ BASE_GRAD_PINS = {"semantic_trans_full": {"G_1": "G_1"}}
 # Seg_de hands Dis0_en there taken from the fp32 step (``CriticPins``'
 # feature feed), and reports it without them.
 BASE_BF16_FED = {"semantic_trans_full": ("Seg_de",)}
-# The timed steps that are also profiled (idle share, top kernels): the
-# batch-1 step of the first model of phases 19 and 20; phases 17 and 18
-# profile one each.
-BASE_PROFILED = {("S2D_base", 1), ("S2D_df", 1)}
 
 
 def base_case(name):
@@ -3323,23 +3325,22 @@ def base_params_close(got, want, before, lr, sgd):
 def recorded_clips(norms):
     """Each gradient norm the train steps' ``clip_grad_global_norm_`` sees,
     appended to ``norms``."""
-    from cycle_depth_estimation_tpu_torch.models import s2d, s2d_base
+    from cycle_depth_estimation_tpu_torch.models import base_model
 
-    clip = s2d.clip_grad_global_norm_
+    clip = base_model.clip_grad_global_norm_
 
     def recorded(params, max_norm):
         norm = clip(params, max_norm)
         norms.append(float(norm))
         return norm
 
-    with mock.patch.object(s2d, "clip_grad_global_norm_", recorded), \
-            mock.patch.object(s2d_base, "clip_grad_global_norm_", recorded):
+    with mock.patch.object(base_model, "clip_grad_global_norm_", recorded):
         yield
 
 
-def base_first_step(name, seed=0):
-    """20a's whole first step of ``name`` at model seed ``seed`` and batch
-    seed 17 + ``seed``, batch 1, Adam's eps at ``BASE_CHECK_EPS``, on the
+def base_first_step(name):
+    """19a's (20a's, 21a's) whole first step of ``name`` at the model's
+    seed and batch seed 17, batch 1, Adam's eps at ``BASE_CHECK_EPS``, on the
     CPU (oneDNN off, each phase snapshotted before it runs and, for a
     ``BASE_PINNED`` model, its BCE calls recorded) and on the card; for a
     pinned model also in float64 and pinned on the card. Losses within 1e-3
@@ -3349,16 +3350,15 @@ def base_first_step(name, seed=0):
 
     from cycle_depth_estimation_tpu_torch.models import create_model
 
-    tag = f"phase {BASE_TAG[name]}a {name}" + (f" seed {seed}" if seed
-                                               else "")
+    tag = f"phase {BASE_TAG[name]}a {name}"
     is_pinned = name in BASE_PINNED
     pins = CriticPins() if is_pinned or name in BASE_SIGNS else None
     grads = GradPins()
     clip_norms = {"CPU": [], "card": []}
-    batch = s2d_batch(1, seed=17 + seed, size=(BASE_H, BASE_W))
+    batch = s2d_batch(1, seed=17, size=(BASE_H, BASE_W))
     t = time.perf_counter()
     with torch.backends.mkldnn.flags(enabled=False):
-        cpu_model = create_model(base_config(name, device="cpu", seed=seed))
+        cpu_model = create_model(base_config(name, device="cpu"))
         cpu_state = with_eps(cpu_model.init_state(), BASE_CHECK_EPS)
         p0 = s2d_params(cpu_state)
         ctx = cpu_model._ctx(state=cpu_state, batch=batch)
@@ -3392,7 +3392,7 @@ def base_first_step(name, seed=0):
     cpu_after = s2d_params(cpu_state)
     del cpu_model, cpu_state, ctx
     cpu_s = time.perf_counter() - t
-    model = create_model(base_config(name, seed=seed))
+    model = create_model(base_config(name))
     state = with_eps(model.init_state(), BASE_CHECK_EPS)
     card_pins = CriticPins()
     with (card_pins.record("step") if is_pinned
@@ -3477,8 +3477,8 @@ def phase_base_card_vs_cpu(name):
     Adam's eps raised to 1e-3 on both sides, as phase 17b does (at the
     models' 1e-8 the first update is lr·sign(g), and rounding-sized
     gradients flip: 0.42 % of G_2's in the G phase of S2D_base alone): the
-    whole step's losses within 1e-3 relative (``base_first_step``, at each
-    of ``BASE_SEEDS``); then each phase again on the card from the CPU's
+    whole step's losses within 1e-3 relative (``base_first_step``); then
+    each phase again on the card from the CPU's
     state, carried tensors and masks before it: its losses within 1e-3 and
     the nets it updates by ``base_params_close``; a ``BASE_PINNED`` or
     ``BASE_GRAD_PINS`` phase pinned, as the comments there say. Over the
@@ -3490,11 +3490,6 @@ def phase_base_card_vs_cpu(name):
     tag = f"phase {BASE_TAG[name]}a {name}"
     first = base_first_step(name)
     bad = first["bad"]
-    for seed in BASE_SEEDS.get(name, (0,))[1:]:
-        more = base_first_step(name, seed)
-        bad.update({f"seed {seed} {k}": v for k, v in more["bad"].items()})
-        del more
-        torch.cuda.empty_cache()
     model, state, state64, snaps, feed, pins, grads, lrs = (
         first[k] for k in ("model", "state", "state64", "snaps", "feed",
                            "pins", "grads", "lrs"))
@@ -3686,9 +3681,9 @@ def phase_base_bf16(name):
 
 def phase_base_timed(name):
     """Phase 19c (20c, 21c) for ``name``: the fp32 step timed (one warm-up,
-    three timed) at each of ``BASE_BATCHES``, and profiled where
-    ``BASE_PROFILED`` says; where the last batch does not fit in the card's
-    memory, the largest of ``BASE_FALLBACK_BATCHES`` that does, said so."""
+    three timed) at each of ``BASE_BATCHES``; where the last batch does not
+    fit in the card's memory, the largest of ``BASE_FALLBACK_BATCHES`` that
+    does, said so."""
     import torch
 
     from cycle_depth_estimation_tpu_torch.models import create_model
@@ -3714,9 +3709,6 @@ def phase_base_timed(name):
                 f"(TF32 off): {dt * 1e3:.1f} ms/step = {k / dt:.2f} img/s, "
                 f"{flops / dt / 1e12:.1f} TFLOP/s; peak memory "
                 f"{peak / 2 ** 30:.2f} GiB")
-            if (name, n) in BASE_PROFILED:
-                profile_step(f"phase {BASE_TAG[name]}c {name} bs{k}", model,
-                             state, batch)
             out[f"bs{k}"] = {"ms": dt * 1e3, "img_s": k / dt, "peak": peak}
             del model, state, batch
             torch.cuda.empty_cache()
@@ -3768,71 +3760,11 @@ def base_step_flops(name, n):
     return by_phase, params
 
 
-def base_flags(name):
-    """Case ``name``'s config fields as train CLI flags."""
-    out = []
-    for k, v in base_case(name).items():
-        out += [f"--{k}"] if v is True else [
-            f"--{k}", *map(str, v if isinstance(v, list) else [v])]
-    return out
-
-
-def start_base_clis(names):
-    """Phase 19d (20d): ``python -m ...train`` for each case of ``names``
-    at full width on vKITTI-sized files, two steps each, each in a process
-    (and session) of its own; the caller ends them."""
-    run = {"dir": tempfile.TemporaryDirectory(), "names": names}
-    tmp = run["dir"].name
-    files = write_try_files(os.path.join(tmp, "data"), n=2,
-                            size=BASE_CLI_SIZE)
-    for name in names:
-        run["args", name] = [
-            *base_flags(name), *files, "--checkpoints_dir",
-            os.path.join(tmp, "ck"), "--name", name, "--niter", "1",
-            "--niter_decay", "0", "--save_epoch_freq", "1", "--print_freq",
-            "1", "--display_freq", "2", "--num_threads", "2", "--device",
-            "cuda"]
-        run[name] = start_cli(TRAIN_CLI, run["args", name])
-    return run
-
-
-def end_base_clis(run, epoch=1, steps=2):
-    """Wait for the CLIs; each wrote its nets (``model_names``) for
-    ``epoch`` after ``steps`` steps, and they load back."""
-    import torch
-
-    from cycle_depth_estimation_tpu_torch.models import create_model
-
-    seconds = {}
-    for name in run["names"]:
-        seconds[name] = end_cli(run.pop(name), f"{name} train CLI")[1]
-        model = create_model(base_config(name, device="cpu"))
-        model.cfg = model.cfg.replace(checkpoints_dir=os.path.join(
-            run["dir"].name, "ck"), name=name)
-        expr = model.cfg.expr_dir()
-        st = torch.load(os.path.join(expr, f"{epoch}_train_state.pth"),
-                        map_location="cpu", weights_only=True)
-        if st["step"] != steps:
-            raise AssertionError(f"{name} CLI: step {st['step']}, want "
-                                 f"{steps}")
-        model.load_networks(model.init_state(), epoch)
-    return seconds
-
-
-def resume_base_clis(run):
-    """Phase 20d's resumes: each CLI again with ``--continue_train`` for
-    epoch 2 (one step), in a process of its own."""
-    for name in run["names"]:
-        run[name] = start_cli(TRAIN_CLI, run["args", name] + [
-            "--continue_train", "--epoch_count", "2", "--niter", "2",
-            "--max_dataset_size", "1"])
-
-
-def phase_base_generation(names, tag, resume=False):
-    """Phase 19 (20, 21): 19a, 19b and 19c for each case of ``names``, the
-    train CLIs (19d) beside 19a and, with ``resume``, their resumes beside
-    19b and 19c. None of these models has an InstanceNorm: the kernel
-    counts must not move."""
+def phase_base_generation(names, tag):
+    """Phase 19 (20, 21): 19a, 19b and 19c for each case of ``names``. None
+    of these models has an InstanceNorm: the kernel counts must not move.
+    (Their train CLIs run in the CPU tests, ``test_torch_port_train_cli``;
+    the card runs S2D's in phase 17.)"""
     from cycle_depth_estimation_tpu_torch.ops.kernels.instance_norm import (
         instance_norm, instance_norm_backward)
     from cycle_depth_estimation_tpu_torch.ops.kernels.int8_epilogue import (
@@ -3846,36 +3778,17 @@ def phase_base_generation(names, tag, resume=False):
         if (cfg.dataset_mode, cfg.batch_size, cfg.fine_size) != ("try", 1,
                                                                  BASE_H):
             raise AssertionError(f"{name} defaults: {cfg}")
-    clis = start_base_clis(names)
-    out, resumed = {}, {}
-    try:
-        try:
-            for name in names:
-                out[name] = {"card_vs_cpu": phase_base_card_vs_cpu(name)}
-        finally:
-            cli_s = end_base_clis(clis)
-        if resume:
-            resume_base_clis(clis)
-        try:
-            for name in names:
-                out[name]["bf16"] = phase_base_bf16(name)
-                out[name].update(phase_base_timed(name))
-        finally:
-            if resume:
-                resumed = end_base_clis(clis, epoch=2, steps=3)
-    finally:
-        clis["dir"].cleanup()
+    out = {}
+    for name in names:
+        out[name] = {"card_vs_cpu": phase_base_card_vs_cpu(name)}
+    for name in names:
+        out[name]["bf16"] = phase_base_bf16(name)
+        out[name].update(phase_base_timed(name))
     moved = {k.__name__: k.launches for k in counters if k.launches}
     if moved:
         raise AssertionError(f"{', '.join(names)} launched InstanceNorm or "
                              f"epilogue kernels: {moved}")
-    log(f"phase {tag} ok: no InstanceNorm or epilogue launch; "
-        + ", ".join(f"python -m cycle_depth_estimation_tpu_torch.train "
-                    f"{' '.join(base_flags(n))} (full width, vKITTI-sized "
-                    f"PNGs, 2 steps) {s:.1f} s" for n, s in cli_s.items())
-        + "".join(f", {n}'s resume (1 step) {s:.1f} s"
-                  for n, s in resumed.items())
-        + "; the nets load back")
+    log(f"phase {tag} ok: no InstanceNorm or epilogue launch")
     return out
 
 
@@ -4179,6 +4092,287 @@ def phase_ptq(g, x, y_fp32, earlier_ms):
     return out
 
 
+# Phase 23: data, ZeRO and tensor parallelism (parallel/)
+PAR_LAYOUTS = {"dp": {}, "zero opt": {"zero": "opt"},
+               "zero fsdp": {"zero": "fsdp"},
+               "tp": {"mesh_shape": [1, 2], "parallel": "tp"}}
+PAR_RANKS = 2           # sharing the one card over gloo
+PAR_EPS = 1e-3          # 23b's Adam eps on both sides (the models' is 1e-8)
+PAR_GRAD_REL = 1e-5     # synced gradients, of the largest
+PAR_GRAD_RUNS = 4.0     # the rest together: × two one-process runs' L2
+PAR_LOSS_REL = 1e-4
+PAR_S2D_LOSS_REL = 1e-3  # S2D's later phases read the earlier updates
+PAR_S2D = {"model": "S2D", "batch_size": 2}
+PAR_WIDTHS = {}         # config overrides of 23b's CycleGAN; empty: full
+
+
+def cycle_cli_args(tmp, name, *extra):
+    """The train CLI at phase 8's working point (two 9-block generators, ngf
+    64, batch 8, 256², fp32, TF32 off) on ``tmp``'s PNGs, one epoch of two
+    steps, each step's losses printed."""
+    return ["--dataroot", tmp, "--checkpoints_dir", os.path.join(tmp, "ck"),
+            "--name", name, "--model", "cycle_gan", "--ngf", str(NGF),
+            "--ndf", str(NDF), "--netG", f"resnet_{N_BLOCKS}blocks",
+            "--batch_size", str(BATCH), "--load_size", str(SIZE),
+            "--fine_size", str(SIZE), "--niter", "1", "--niter_decay", "0",
+            "--save_epoch_freq", "1", "--print_freq", str(BATCH),
+            "--display_freq", "100000", "--save_latest_freq", "100000",
+            "--tpu_precision", "highest", "--num_threads", "2", "--device",
+            "cuda", *extra]
+
+
+def saved_tensors(expr):
+    """Every tensor a train CLI run saved for epoch 1 (nets, optimizer
+    states, pools), by a path of keys."""
+    import torch
+
+    out = {}
+
+    def walk(prefix, v):
+        if torch.is_tensor(v):
+            out[prefix] = v
+        elif isinstance(v, dict):
+            for k, x in v.items():
+                walk(f"{prefix}/{k}", x)
+
+    for f in sorted(os.listdir(expr)):
+        if f.startswith("1_") and f.endswith(".pth"):
+            walk(f, torch.load(os.path.join(expr, f), map_location="cpu",
+                               weights_only=True))
+    return out
+
+
+def max_apart(a, b):
+    if a.keys() != b.keys():
+        raise AssertionError(f"saved different tensors: {a.keys() ^ b.keys()}")
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               if a[k].numel() else 0.0 for k in a)
+
+
+def step_times(text):
+    """The ``time:`` of each step a CLI printed, in s."""
+    return [float(ln.split("time: ")[1].split(",")[0])
+            for ln in text.splitlines() if ln.startswith("(epoch: ")]
+
+
+def par_cli_run(run, name):
+    """``end_cli`` of one of 23a's CLI runs: its output, seconds, each
+    step's time and every tensor it saved."""
+    text, seconds = end_cli(run, f"train CLI ({name})")
+    times = step_times(text)
+    if len(times) != 2:
+        raise AssertionError(f"{name}: {len(times)} steps:\n{text}")
+    return {"text": text, "s": seconds, "times": times,
+            "saved": saved_tensors(os.path.join(run["tmp"], "ck", name))}
+
+
+def phase_parallel():
+    """Phase 23. 23a: the train CLI under ``--parallel dp`` in a world of
+    one over NCCL (``--coordinator_address``) against the plain CLI run
+    twice: its state after two steps ``torch.equal`` to the plain run's,
+    or, where the two plain runs differ (cuDNN's backward), within twice
+    that. The first plain run and the dp run are timed alone; the second
+    plain run, the yardstick, runs beside 23b. Then 23b."""
+    import numpy as np
+    from PIL import Image
+
+    from cycle_depth_estimation_tpu_torch.parallel.dryrun import free_port
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(23)
+        for phase in ("trainA", "trainB"):
+            os.makedirs(os.path.join(tmp, phase))
+            for i in range(2 * BATCH):  # two steps
+                Image.fromarray(rng.randint(0, 256, (SIZE, SIZE, 3), np.uint8)
+                                ).save(os.path.join(tmp, phase, f"im{i}.png"))
+
+        def start(name, *extra):
+            run = start_cli(TRAIN_CLI, cycle_cli_args(tmp, name, *extra))
+            run["tmp"] = tmp
+            return run
+
+        runs = {"plain1": par_cli_run(start("plain1"), "plain1"),
+                "dp": par_cli_run(start(
+                    "dp", "--parallel", "dp", "--coordinator_address",
+                    f"localhost:{free_port()}", "--num_processes", "1",
+                    "--process_index", "0"), "dp")}
+        plain2 = start("plain2")
+        try:
+            ranks = phase_parallel_ranks()
+        finally:
+            runs["plain2"] = par_cli_run(plain2, "plain2")
+    if "backend nccl" not in runs["dp"]["text"]:
+        raise AssertionError("the world of one did not take NCCL:\n"
+                             + runs["dp"]["text"][:2000])
+    plain = max_apart(runs["plain1"]["saved"], runs["plain2"]["saved"])
+    dp = min(max_apart(runs["dp"]["saved"], runs[p]["saved"])
+             for p in ("plain1", "plain2"))
+    bar = 2 * plain
+    if dp > bar:
+        raise AssertionError(f"23a: --parallel dp state {dp:.3e} from the "
+                             f"plain run's; the plain runs differ by "
+                             f"{plain:.3e}")
+    log(f"phase 23a ok: train CLI, CycleGAN {N_BLOCKS} blocks ngf {NGF} "
+        f"{SIZE}^2 batch {BATCH} fp32 TF32 off, 2 steps: --parallel dp in a "
+        f"world of one over NCCL {'torch.equal to' if dp == 0 else 'within '}"
+        f"{'' if dp == 0 else f'{dp:.3e} of'} the plain run's state "
+        f"({len(runs['dp']['saved'])} tensors; the two plain runs differ by "
+        f"{plain:.3e}, bar {'equal' if plain == 0 else f'{bar:.3e}'}); "
+        f"second step {runs['plain1']['times'][1] * 1e3:.1f} ms plain, "
+        f"{runs['dp']['times'][1] * 1e3:.1f} ms --parallel dp (each alone "
+        "on the card); CLI "
+        + ", ".join(f"{k} {v['s']:.1f} s" for k, v in runs.items())
+        + " (plain2 beside 23b)")
+    log(f"phase 23: {time.perf_counter() - t:.1f} s")
+    return runs, ranks
+
+
+def phase_parallel_ranks():
+    """Phase 23b: two ranks sharing the card over gloo, one spawn for every
+    case: the CycleGAN step of phase 8's width at global batch 8 (4 rows a
+    rank) under ``dp``, ``--zero opt``, ``--zero fsdp`` and ``--mesh_shape
+    1 2 --parallel tp`` (both ranks all 8 rows), each against the
+    single-process step on the card from the same seed, TF32 off and
+    Adam's eps at 1e-3 on both sides: each synced generator gradient
+    within 1e-5 of the largest, and those that are not (cuDNN's fp32
+    weight gradients, summed over 256² planes, vary run to run by up to
+    ~2e-3 of the largest), taken together, within four times the L2
+    distance of two runs of the one process on them (one small tensor's
+    two runs are too few samples to be a yardstick alone; a gradient left
+    unsynced makes the ranks' parameters differ, and one summed where it
+    is averaged is off by its own size); losses within 1e-4, parameters
+    by the three pooled checks, the ranks' parameters equal, 192 + 192
+    InstanceNorm launches a rank a step; and S2D at batch 2 (a row a
+    rank), 192×576, under ``dp``, each phase held from the one-process
+    state and input before it (``dryrun.phase_by_phase``, as phase 17b
+    holds the card against the CPU): its losses within 1e-3 and every
+    net's parameters by the three checks at its own lr."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.parallel import dryrun
+
+    t = time.perf_counter()
+    cyc = {"model": "cycle_gan", "batch_size": BATCH, "fine_size": SIZE,
+           "ngf": NGF, "ndf": NDF, "net_g": f"resnet_{N_BLOCKS}blocks",
+           "tpu_precision": "highest", **PAR_WIDTHS}
+    gen = torch.Generator().manual_seed(23)
+    batch = {k: torch.rand(BATCH, 3, SIZE, SIZE, generator=gen) * 2 - 1
+             for k in ("img_source", "img_target")}
+    s2d = {**PAR_S2D, **S2D_WIDTHS, "adam_eps": PAR_EPS,
+           "tpu_precision": "highest"}
+    s2d_b = s2d_batch(PAR_S2D["batch_size"], seed=23, size=(S2D_H, S2D_W))
+    cases = {name: (dryrun.model_step,
+                    (cyc, batch, layout, None, PAR_EPS, 1, True))
+             for name, layout in PAR_LAYOUTS.items()}
+    cases["S2D dp"] = (dryrun.phase_by_phase, (s2d, s2d_b))
+    one, again = (dryrun.model_step(cyc, batch, {}, None, PAR_EPS, 1, True)
+                  for _ in range(2))
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t
+    ranks = dryrun.spawn(dryrun.run_cases, PAR_RANKS, (cases,),
+                         device="cuda", timeout=900, threads=2)
+    t_ranks = time.perf_counter() - t - t_one
+
+    g1 = one["grads"]
+    big = max(float(g.abs().max()) for g in g1.values())
+    # the one process's own run-to-run distance, in L2, per tensor
+    own = {k: float((g1[k].double() - again["grads"][k].double()).norm())
+           for k in g1}
+    lines, misses = [], []
+    for case in PAR_LAYOUTS:
+        worst = {"loss": 0.0, "past_lr": 0.0, "grad": (0.0, "")}
+        for r in ranks:
+            got, tag = r[case], f"23b {case} rank {r[case]['rank']}"
+            per = TRAIN_PER_STEP
+            if got["launches"] != [(per, per)]:
+                misses.append(f"{tag}: InstanceNorm launches "
+                              f"{got['launches']}, want {per} + {per}")
+            loss = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-2)
+                       for k, v in one["metrics"].items())
+            if loss > PAR_LOSS_REL:
+                misses.append(f"{tag}: losses {loss:.2e} apart")
+            worst["loss"] = max(worst["loss"], loss)
+            past = []  # the tensors past 1e-5 of the largest, held together
+            for k, g in g1.items():
+                d = float((got["grads"][k] - g).abs().max())
+                worst["grad"] = max(worst["grad"], (d / big, k))
+                if d > PAR_GRAD_REL * big:
+                    past.append(k)
+            if past:
+                l2 = math.sqrt(sum(float(
+                    (got["grads"][k].double() - g1[k].double()).norm()) ** 2
+                    for k in past))
+                runs_l2 = math.sqrt(sum(own[k] ** 2 for k in past))
+                worst["by_runs"] = max(worst.get("by_runs", (0.0, 0)),
+                                       (l2 / max(runs_l2, 1e-30), len(past)))
+                if l2 > PAR_GRAD_RUNS * runs_l2:
+                    misses.append(f"{tag}: the {len(past)} synced gradients "
+                                  f"past 1e-5 of the largest are {l2:.3e} "
+                                  f"apart in L2; two one-process runs "
+                                  f"{runs_l2:.3e}")
+            for name, sd in one["params"].items():
+                stats = dryrun.params_apart(got["params"][name], sd, 2e-4)
+                if not stats["ok"]:
+                    misses.append(f"{tag} {name} parameters apart: {stats}")
+                worst["past_lr"] = max(worst["past_lr"], stats["past_lr"])
+        a, b = (r[case]["params"] for r in ranks)
+        unequal = [f"{n}.{k}" for n, sd in a.items() for k, v in sd.items()
+                   if not torch.equal(v, b[n][k])]
+        if unequal:
+            misses.append(f"23b {case}: the ranks' {unequal[:3]} differ")
+        mem = "; ".join(
+            f"rank {r[case]['rank']} holds "
+            + ", ".join(f"{k} {v / 2 ** 20:.1f}"
+                        for k, v in r[case]["resident_bytes"].items())
+            + f" MiB (allocated {r[case]['allocated_bytes'] / 2 ** 30:.2f} "
+            "GiB)" for r in ranks)
+        rep = ranks[0][case]["memory_report"]
+        lines.append(
+            f"{case}: losses {worst['loss']:.2e} apart, gradients "
+            f"{worst['grad'][0]:.2e} of the largest ({worst['grad'][1]}"
+            + (f"; the {worst['by_runs'][1]} tensors past 1e-5 "
+               f"{worst['by_runs'][0]:.2f}× the two one-process runs' L2 "
+               "distance" if "by_runs" in worst else "")
+            + f"), past lr {worst['past_lr']:.2e}; launches "
+            f"{ranks[0][case]['launches'][0]} a rank a step; memory_report "
+            f"replicated {rep['replicated_total_mib']} MiB, zero "
+            f"{rep['zero_total_mib']} MiB a rank ({rep['mesh_axis']}); {mem}")
+    s2d_lines = []
+    for r in ranks:
+        for ph in r["S2D dp"]:
+            tag = f"23b S2D dp rank {ranks.index(r)} phase {ph['phase']}"
+            bad = {k: v for k, v in ph["losses"].items()
+                   if not k.startswith("acc") and v > PAR_S2D_LOSS_REL}
+            if bad:
+                misses.append(f"{tag}: losses apart {bad}")
+            for name, st in ph["nets"].items():
+                if not st["ok"]:
+                    misses.append(f"{tag} {name}: {st}")
+            if r is ranks[0]:
+                s2d_lines.append(
+                    f"{ph['phase']} losses ≤ "
+                    f"{max(ph['losses'].values(), default=0.0):.1e}, "
+                    + ", ".join(f"{k} {v['max_over_lr']:.2g} lr"
+                                for k, v in ph["nets"].items()
+                                if v["max_over_lr"] > 0))
+    runs = max((float((g1[k] - again["grads"][k]).abs().max()) / big, k)
+               for k in g1)
+    log(f"phase 23b: {PAR_RANKS} ranks sharing the card over gloo, "
+        f"CycleGAN {N_BLOCKS} blocks ngf {NGF} {SIZE}^2 global batch {BATCH} "
+        f"and S2D {S2D_H}x{S2D_W} batch {PAR_S2D['batch_size']}, each against "
+        f"one process, run twice ({t_one:.1f} s), ranks {t_ranks:.1f} s; the "
+        f"two one-process runs' gradients ≤ {runs[0]:.2e} of the largest "
+        f"apart ({runs[1]}); " + " | ".join(lines)
+        + " | S2D dp, phase by phase from one process: "
+        + "; ".join(s2d_lines))
+    if misses:
+        raise AssertionError("23b: " + "; ".join(misses))
+    counted = [r[c]["launches"] for r in ranks for c in PAR_LAYOUTS]
+    return {"fwd": sum(f for ls in counted for f, _ in ls),
+            "bwd": sum(b for ls in counted for _, b in ls)}
+
+
 LOADERS = {  # name: the train CLI's loader flags
     "serial": ["--num_threads", "0"],
     "4 threads (the default)": ["--num_threads", "4"],
@@ -4370,8 +4564,7 @@ def main() -> int:
             end_cli(seg_cli.pop("resume"), "SegCycle train CLI resume")
     s2d = phase_s2d()
     base = phase_base_generation(BASE_MODELS, "19")
-    two_trunk = phase_base_generation(TWO_TRUNK, "20",
-                                      resume=True)
+    two_trunk = phase_base_generation(TWO_TRUNK, "20")
     st = phase_base_generation(ST_MODELS, "21")
     rf_cli = start_rf_lw_cli()  # beside phase 18b's checks
     try:
@@ -4379,9 +4572,14 @@ def main() -> int:
     finally:
         if "cli" in rf_cli:
             end_cli(rf_cli.pop("cli"), "rf_lw train CLI")
+    (_, par_ranks), parallel = counts_of(phase_parallel)
+    parallel = {"instance_norm": parallel["instance_norm"] + par_ranks["fwd"],
+                "instance_norm_bwd": (parallel["instance_norm_bwd"]
+                                      + par_ranks["bwd"])}
     later = {"bf16_and_fp32_training": bf16_train,
              "remat_and_plain": remat,
-             "seg_cycle": seg_cycle, "t2net": t2net, "rf_lw": rf_lw}
+             "seg_cycle": seg_cycle, "t2net": t2net, "rf_lw": rf_lw,
+             "parallel": parallel}
     for path, counts in (("serving", serving), ("training", training),
                          ("pix2pix", pix2pix), ("ptq", ptq_path),
                          *later.items()):

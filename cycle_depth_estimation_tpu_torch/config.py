@@ -8,8 +8,10 @@ per-model defaults for flags the user did not set). ``device`` is new: the
 port runs on ``cuda`` unless told ``cpu``; ``pth_path`` is the flag the JAX
 CLI parses by hand. ``tpu_precision`` keeps the JAX name so that a JAX
 command line runs unchanged: ``highest`` turns off cuDNN's and matmul's TF32
-(``device.set_precision``). Flags of slices not ported yet are absent, so
-argparse rejects them.
+(``device.set_precision``). The parallel flags (``mesh_shape``,
+``mesh_axes``, ``parallel``, ``zero``, ``coordinator_address``,
+``num_processes``, ``process_index``) and ``prefetch_depth`` are the JAX
+ones. Flags of slices not ported yet are absent, so argparse rejects them.
 """
 
 from __future__ import annotations
@@ -156,6 +158,20 @@ class Config:
     model_suffix: str = ""          # test model: serve <epoch>_net_G<suffix>
     int8: bool = False              # test CLI: serve the generator int8 (PTQ)
     tpu_precision: str = "default"  # 'default' | 'highest' (TF32 off)
+    # parallelism (``parallel/``; the JAX flags): the mesh over the ranks
+    # (default: every rank on 'data'; a two-element shape: data model)
+    mesh_shape: Optional[List[int]] = None
+    mesh_axes: Optional[List[str]] = None
+    parallel: str = "dp"   # dp | tp (Megatron trunk, cycle_gan); sp and
+                           # pp are not in the port yet (ROADMAP A1b)
+    zero: str = "off"      # off | opt (Adam moments split over 'data') |
+                           # fsdp (parameters too)
+    prefetch_depth: int = 2         # batches in flight to the device
+    # a world of processes without torchrun: every process gets the same
+    # address ('host:port') and its own index
+    coordinator_address: Optional[str] = None
+    num_processes: int = 1
+    process_index: int = 0
 
     def expr_dir(self) -> str:
         return os.path.join(self.checkpoints_dir, self.name)

@@ -8,7 +8,9 @@ device. The arithmetic is the host pipeline's (``transforms.py``), in the
 same order, so forced crops and flips give the host's numbers exactly. Crop
 offsets and flips are drawn from an explicit ``torch.Generator`` on the
 batch's device: one seed gives one sequence, though not the JAX package's
-(``jax.random``) draws.
+(``jax.random``) draws. Under data parallelism a rank draws for the global
+batch and keeps its rows, so every row gets the draw it gets in one
+process.
 
 The label and depth part — ``remap_labels``, ``label_edges`` and
 ``depth_bands`` — is ``data/preprocess.py``'s arithmetic on (N)HW tensors of
@@ -22,6 +24,8 @@ from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import global_rows, local_rows
 
 _LUMA = (0.299, 0.587, 0.114)
 UNALIGNED_GROUPS = (("A",), ("B",))
@@ -90,9 +94,9 @@ def _augment_batch(batch: Dict[str, torch.Tensor], generator: torch.Generator,
         if not keys:
             continue
         n, _, h, w = batch[keys[0]].shape
-        tops, lefts, flips = draw_augment_params(
-            generator, n, (h, w), fine_size, train=train, no_flip=no_flip,
-            aligned=aligned)
+        tops, lefts, flips = (local_rows(t) for t in draw_augment_params(
+            generator, global_rows(n), (h, w), fine_size, train=train,
+            no_flip=no_flip, aligned=aligned))
         for k in keys:
             out[k] = crop_flip_normalize(batch[k], tops, lefts, flips,
                                          fine_size,

@@ -162,14 +162,12 @@ def prefetch_to_device(iterator, device, depth: int = 2
     """Yield ``iterator``'s batches with every tensor on ``device``, the
     copies of the next ``depth`` batches already issued. To a CUDA device a
     tensor goes through pinned host memory and a non-blocking copy; other
-    leaves (paths) pass through."""
-    device = torch.device(device)
-    pin = device.type == "cuda"
+    leaves (paths) pass through. Under data parallelism only this rank's
+    rows are moved (``parallel.mesh.host_shard_batch``)."""
+    from ..parallel.mesh import host_shard_batch
 
     def put(batch):
-        return {k: (v.pin_memory() if pin else v).to(device, non_blocking=pin)
-                if isinstance(v, torch.Tensor) else v
-                for k, v in batch.items()}
+        return host_shard_batch(batch, device)
 
     queue = collections.deque()
     it = iter(iterator)

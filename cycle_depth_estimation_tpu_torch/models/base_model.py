@@ -19,7 +19,14 @@ buffers.
   net with the reference's state-dict names (BatchNorm statistics
   included), so reference tools read them, plus ``{epoch}_train_state.pth``
   with the optimizer states, the pools and the step; ``load_nets`` reads
-  the nets alone.
+  the nets alone. Under ``parallel/`` layouts the tensors are gathered
+  whole first (every rank takes part) and rank 0 writes.
+- ``optimizer_step``: every optimizer step of a train step. Under data
+  parallelism it first averages the gradient over the ``data`` group
+  (``parallel.collectives.sync_grads``; a ``ZeroOptimizer`` reduce-scatters
+  it), so a clip sees the global gradient; ``metrics_dict`` averages the
+  step's losses over ``data``, so they are global means as the JAX
+  metrics are.
 """
 
 from __future__ import annotations
@@ -33,6 +40,9 @@ from torch import nn
 
 from ..config import Config
 from ..device import resolve_device
+from ..parallel import collectives
+from ..parallel.tensor import gathered_optimizer_state, gathered_state_dict
+from ..parallel.zero import ZeroOptimizer, gather_params
 from ..utils.image_pool import ImagePool
 from ..utils.weights import load_pth
 from .networks import lr_schedule
@@ -68,6 +78,13 @@ def clip_grad_global_norm_(params: Iterable[torch.Tensor],
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
     return norm
+
+
+def optimizer_params(opt) -> list:
+    """The parameters an optimizer (or a ``ZeroOptimizer``) steps."""
+    if isinstance(opt, ZeroOptimizer):
+        return opt.params
+    return [p for g in opt.param_groups for p in g["params"]]
 
 
 class BaseModel:
@@ -115,6 +132,24 @@ class BaseModel:
                 group["lr"] = lr
         return state
 
+    @staticmethod
+    def optimizer_step(opt, max_norm: float = None) -> None:
+        """Step ``opt`` on its parameters' ``.grad``: averaged over the
+        ``data`` group first (and, for the parameters tensor parallelism
+        leaves whole, over ``model``), then clipped to the global norm
+        ``max_norm`` (``clip_grad_global_norm_``) where one is given."""
+        params = optimizer_params(opt)
+        collectives.sync_replicas(params)
+        if isinstance(opt, ZeroOptimizer):
+            opt.reduce_grads()
+            if max_norm is not None:
+                opt.clip_grad_global_norm_(max_norm)
+        else:
+            collectives.sync_grads(params)
+            if max_norm is not None:
+                clip_grad_global_norm_(params, max_norm)
+        opt.step()
+
     def step_generator(self, state: ModelState) -> torch.Generator:
         """A CPU generator seeded by ``seed`` and the step: what a step
         draws from it, the card and the CPU draw alike, and a resumed run
@@ -132,13 +167,19 @@ class BaseModel:
 
     def save_networks(self, state: ModelState, epoch) -> Dict[str, str]:
         paths = self._paths(epoch)
+        gather_params(state)
+        nets = {name: {k: v.detach().cpu() for k, v in
+                       gathered_state_dict(state.nets[name]).items()}
+                for name in self.model_names}
+        optimizers = {k: (o.state_dict() if isinstance(o, ZeroOptimizer)
+                          else gathered_optimizer_state(o))
+                      for k, o in state.optimizers.items()}
+        if not collectives.is_writer():
+            return paths
         os.makedirs(self.cfg.expr_dir(), exist_ok=True)
         for name in self.model_names:
-            torch.save({k: v.detach().cpu()
-                        for k, v in state.nets[name].state_dict().items()},
-                       paths[name])
-        torch.save({"optimizers": {k: o.state_dict()
-                                   for k, o in state.optimizers.items()},
+            torch.save(nets[name], paths[name])
+        torch.save({"optimizers": optimizers,
                     "pools": {k: p.state_dict() for k, p in state.pools.items()},
                     "step": state.step}, paths["train_state"])
         return paths
@@ -169,6 +210,8 @@ class BaseModel:
         return state
 
     def metrics_dict(self, **kw) -> Dict[str, torch.Tensor]:
-        """Losses as detached fp32 0-d tensors on the device: reading one
-        (``float(v)``) is the caller's choice of when to sync."""
-        return {k: torch.as_tensor(v).detach().float() for k, v in kw.items()}
+        """Losses as detached fp32 0-d tensors on the device, averaged over
+        the ``data`` group: reading one (``float(v)``) is the caller's
+        choice of when to sync."""
+        return collectives.mean_over_data(
+            {k: torch.as_tensor(v).detach().float() for k, v in kw.items()})

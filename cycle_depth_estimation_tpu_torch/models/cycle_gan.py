@@ -162,7 +162,7 @@ class CycleGANModel(BaseModel):
         loss_G, aux = self._g_losses(nets, real_A, real_B)
         opt["G"].zero_grad(set_to_none=True)
         loss_G.backward()
-        opt["G"].step()
+        self.optimizer_step(opt["G"])
         for p in d_params:
             p.requires_grad_(True)
         fake_B, fake_A = aux["fake_B"].detach(), aux["fake_A"].detach()
@@ -177,7 +177,7 @@ class CycleGANModel(BaseModel):
                                                 real_A, fake_A_mix)
             opt["D"].zero_grad(set_to_none=True)
             (loss_D_A + loss_D_B).backward()
-            opt["D"].step()
+            self.optimizer_step(opt["D"])
         state.step += 1
         return state, self._metrics(aux, loss_D_A, loss_D_B)
 

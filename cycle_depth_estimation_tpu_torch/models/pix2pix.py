@@ -98,7 +98,7 @@ class Pix2PixModel(BaseModel):
                                self.gan_mode)
         opt["D"].zero_grad(set_to_none=True)
         (0.5 * (loss_D_fake + loss_D_real)).backward()
-        opt["D"].step()
+        self.optimizer_step(opt["D"])
 
         # ---- G update against the updated D; D frozen ----
         for p in D.parameters():
@@ -108,7 +108,7 @@ class Pix2PixModel(BaseModel):
         loss_G_L1 = l1_loss(fake_B, real_B) * cfg.lambda_l1
         opt["G"].zero_grad(set_to_none=True)
         (loss_G_GAN + loss_G_L1).backward()
-        opt["G"].step()
+        self.optimizer_step(opt["G"])
         for p in D.parameters():
             p.requires_grad_(True)
         state.step += 1

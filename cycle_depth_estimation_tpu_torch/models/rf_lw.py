@@ -105,7 +105,7 @@ class RefineNetSegDepth(BaseModel):
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
-        state.optimizers[name].step()
+        self.optimizer_step(state.optimizers[name])
         for p in params:
             p.grad = None
 

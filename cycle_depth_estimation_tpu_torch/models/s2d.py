@@ -49,8 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import register_model
 from ..ops.layers import running_stats_kept, set_compute_dtype
-from .base_model import (BaseModel, ModelState, clip_grad_global_norm_,
-                         make_optimizer)
+from .base_model import BaseModel, ModelState, make_optimizer
 from .networks import gan_loss, l1_loss
 from .s2d_networks import bce_dep_loss, define_s2d_nets, get_masks
 from .seg_network import cross_entropy_loss, seg_accuracy
@@ -112,9 +111,8 @@ class S2DModel(BaseModel):
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
-        if name in self.clip_norms:
-            clip_grad_global_norm_(params, self.clip_norms[name])
-        state.optimizers[name].step()
+        self.optimizer_step(state.optimizers[name],
+                            self.clip_norms.get(name))
         for p in params:
             p.grad = None
 

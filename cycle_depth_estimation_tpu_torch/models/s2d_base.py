@@ -42,8 +42,8 @@ import torch
 
 from . import register_model
 from ..ops.layers import set_compute_dtype
-from .base_model import (BaseModel, ModelState, clip_grad_global_norm_,
-                         make_optimizer)
+from ..parallel.collectives import global_rows, local_rows
+from .base_model import BaseModel, ModelState, make_optimizer
 from .networks import gan_loss, l1_loss
 from .s2d_networks import CLASS_WEIGHTS_28, define_s2d_base_nets
 from .seg_network import cross_entropy_loss, seg_accuracy
@@ -87,9 +87,8 @@ class PhasedModel(BaseModel):
             for p in ps:
                 g = next(it)
                 p.grad = torch.zeros_like(p) if g is None else g
-            if name in self.clip_norms:
-                clip_grad_global_norm_(ps, self.clip_norms[name])
-            state.optimizers[name].step()
+            self.optimizer_step(state.optimizers[name],
+                                self.clip_norms.get(name))
             for p in ps:
                 p.grad = None
 
@@ -129,10 +128,13 @@ class DropMaskModel(PhasedModel):
 
     def dropout_masks(self, state: ModelState, n: int):
         """A function that returns the next Dis_en forward's keep-masks for
-        a batch of ``n``, drawn on the CPU from ``step_generator``."""
+        a batch of ``n``, drawn on the CPU from ``step_generator``; under
+        data parallelism drawn for the global batch, this rank's rows
+        kept."""
         gen = self.step_generator(state)
         dis = state.nets["Dis_en"]
-        return lambda: [m.to(self.device) for m in dis.draw_masks(n, gen)]
+        return lambda: [local_rows(m).to(self.device)
+                        for m in dis.draw_masks(global_rows(n), gen)]
 
     def _ctx(self, state, batch):
         ctx = super()._ctx(state, batch)

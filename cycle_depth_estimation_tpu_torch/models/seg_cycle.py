@@ -173,7 +173,7 @@ class SegCycleModel(BaseModel):
                                             lab_B)
         opt["G"].zero_grad(set_to_none=True)
         total.backward()
-        opt["G"].step()
+        self.optimizer_step(opt["G"])
         for p in d_params:
             p.requires_grad_(True)
 
@@ -183,7 +183,7 @@ class SegCycleModel(BaseModel):
                                             fake_A_mix)
         opt["D"].zero_grad(set_to_none=True)
         (loss_D_A + loss_D_B).backward()
-        opt["D"].step()
+        self.optimizer_step(opt["D"])
         state.step += 1
         return state, self.metrics_dict(D_A=loss_D_A, D_B=loss_D_B, **losses)
 

@@ -96,7 +96,7 @@ class SegModel(BaseModel):
         opt = state.optimizers["T"]
         opt.zero_grad(set_to_none=True)
         loss.backward()
-        opt.step()
+        self.optimizer_step(opt)
         state.step += 1
         return state, metrics
 

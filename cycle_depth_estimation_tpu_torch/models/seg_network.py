@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.init import init_tensor, init_weights
+from ..parallel.collectives import global_mean
 from ..ops.layers import (Conv2d, ConvTranspose2d, InstanceNorm, Norm,
                           PReLU, norm_uses_bias, resize_bilinear)
 
@@ -726,7 +727,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     ``labels`` NHW integers. A label outside [0, C) is ignored like
     ``ignore_index`` (``F.cross_entropy`` would assert on the device there).
     ``weights``: a per-class weight vector; the mean is then Σ w[y]·ℓ over
-    Σ w[y] on the valid pixels (torch's rule)."""
+    Σ w[y] on the valid pixels (torch's rule). Under data parallelism both
+    sums are over the global batch (``global_mean``)."""
     num_classes = logits.shape[1]
     logp = F.log_softmax(logits.float(), dim=1)
     labels = labels.long()
@@ -735,16 +737,17 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     ll = logp.gather(1, safe[:, None]).squeeze(1)
     if weights is None:
         v = valid.float()
-        return -(ll * v).sum() / v.sum().clamp_min(1)
+        return -global_mean((ll * v).sum(), v.sum(), 1)
     w = torch.as_tensor(weights, dtype=torch.float32,
                         device=logits.device)[safe] * valid
-    return -(ll * w).sum() / w.sum().clamp_min(1e-8)
+    return -global_mean((ll * w).sum(), w.sum(), 1e-8)
 
 
 def seg_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                  ignore_index: int = 255) -> torch.Tensor:
     """Share of the pixels other than ``ignore_index`` whose argmax class
-    is their label."""
+    is their label (over the global batch under data parallelism)."""
     valid = labels != ignore_index
     pred = logits.argmax(1)
-    return ((pred == labels) & valid).sum().float() / valid.sum().clamp_min(1)
+    return global_mean(((pred == labels) & valid).sum().float(),
+                       valid.sum().float(), 1)

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import collectives
 from .int8_conv import conv2d_int8
 from .kernels.instance_norm import instance_norm
 
@@ -163,14 +164,38 @@ class BatchNorm(nn.BatchNorm2d):
     forward lets torch update the buffers in its one pass, then takes the
     excess back out: with ``new = (1−m)·old + m·v·n/(n−1)``, the flax value
     ``(1−m)·old + m·v`` is ``new − (new − (1−m)·old)/n``.
+
+    Under data parallelism (a ``data`` group of more than one rank) train
+    mode uses the global batch's statistics, as the JAX step over a mesh
+    does: the mean, then the biased variance about it, each from
+    per-channel sums all-reduced over ``data`` (differentiably), with n the
+    global count, and the flax rule on the running statistics.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        xf = x.float()
+        n = x.numel() // x.shape[1] * collectives.data_size()
+        mean = collectives.all_reduce(xf.sum((0, 2, 3)), group) / n
+        xc = xf - mean.view(shape)
+        var = collectives.all_reduce((xc * xc).sum((0, 2, 3)), group) / n
+        y = (xc * torch.rsqrt(var + self.eps).view(shape)
+             * self.weight.view(shape) + self.bias.view(shape))
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if collectives.data_size() > 1:
+            return self._global_forward(x, collectives.active().data)
         old = self.running_var.clone()
         y = super().forward(x)
         n = x.numel() // x.shape[1]

@@ -16,6 +16,11 @@ pool's own CPU ``torch.Generator``, so the choices need no device sync and
 are the same on every device for one seed. The JAX pool draws from
 ``jax.random`` keys instead, so the two agree draw for draw only while the
 pool is under-full, where nothing is drawn.
+
+Under data parallelism a query sees the global batch, as the JAX pool does:
+each rank all-gathers the fakes over ``data``, runs the same query with the
+same generator state, and keeps its own rows, so the pool stays the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+
+from ..parallel import collectives
 
 
 class ImagePool:
@@ -41,7 +48,7 @@ class ImagePool:
         modified; the pool keeps copies)."""
         if self.pool_size == 0:
             return batch
-        batch = batch.detach()
+        batch = collectives.gather_rows(batch.detach())
         if self.images is None:
             self.images = torch.zeros((self.pool_size, *batch.shape[1:]),
                                       device=batch.device)
@@ -57,7 +64,7 @@ class ImagePool:
             if p > 0.5:
                 out[i].copy_(self.images[rid])
                 self.images[rid].copy_(batch[i])
-        return out
+        return collectives.local_rows(out)
 
     def state_dict(self) -> Dict[str, object]:
         return {"images": self.images, "count": self.count,

@@ -167,6 +167,15 @@ def test_flags_of_later_slices_are_rejected(flag):
     if flag == "--int8":  # ported since: the test CLI's generic PTQ
         assert parse_args([flag]).int8 and not parse_args([]).int8
         return
+    if flag in ("--parallel", "--prefetch_depth", "--mesh_shape", "--zero"):
+        # ported since: parallel/ and the train CLI's prefetch depth
+        field = flag[2:]
+        default = getattr(Config(), field)
+        assert default == getattr(JaxConfig(), field)
+        assert getattr(parse_args([]), field) == default
+        want = [1] if flag == "--mesh_shape" else type(default)("1")
+        assert getattr(parse_args([flag, "1"]), field) == want
+        return
     if flag in ("--kitti_gt_dir", "--eval_freq", "--records_file"):
         # ported since: the in-loop KITTI validation
         field = flag[2:]
@@ -176,6 +185,28 @@ def test_flags_of_later_slices_are_rejected(flag):
         return
     with pytest.raises(SystemExit):
         parse_args([flag, "1"])
+
+
+def test_config_defaults_match_jax():
+    """Every field both packages' ``Config`` have takes one default, and so
+    does each model's default override of such a field."""
+    import dataclasses
+
+    from cycle_depth_estimation_tpu.config import MODEL_DEFAULTS as JAX_MD
+    from cycle_depth_estimation_tpu_torch.config import MODEL_DEFAULTS
+
+    port, jax_cfg = Config(), JaxConfig()
+    shared = ({f.name for f in dataclasses.fields(Config)}
+              & {f.name for f in dataclasses.fields(JaxConfig)})
+    assert {"mesh_shape", "mesh_axes", "parallel", "zero", "prefetch_depth",
+            "coordinator_address", "num_processes",
+            "process_index"} <= shared
+    for name in sorted(shared):
+        assert getattr(port, name) == getattr(jax_cfg, name), name
+    assert set(MODEL_DEFAULTS) == set(JAX_MD)
+    for model, over in MODEL_DEFAULTS.items():
+        for k in shared & (set(over) | set(JAX_MD[model])):
+            assert over.get(k) == JAX_MD[model].get(k), (model, k)
 
 
 def test_reference_flag_aliases():
