@@ -13,6 +13,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    six plane shapes of a CycleGAN train step (three of G, three of D, the
    31² one masked), fp32 and bf16, with kernel, plain, library (autograd's
    backward of ``F.instance_norm``) and byte-bound times.
+1c. The four split InstanceNorm entries (Triton; ``--parallel sp``:
+   ``in_stats``, ``in_apply``, ``in_bwd_stats``, ``in_bwd_apply``) against
+   their plain versions on both ranks' rows of the six planes of a CycleGAN
+   step with the height over two ranks (the 31-row plane as 15 and 16
+   rows), fp32 and bf16, and the two shards' y and dx against the fused
+   kernels' on the whole plane; fp32 times of rank 0's rows beside the
+   plain versions and the byte bound.
 2. int8 epilogue kernel (CUDA C++) against its plain version at every site
    variant of ``fused_int8_apply``, with the plan each site takes, its time
    beside its bound and beside the generic (earlier) kernel's; then ragged
@@ -93,7 +100,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    (DenseNet-169 G_2 with growth 32, blocks (6, 12, 32, 32), mid_nc 1024;
    G_1 with 3 dual blocks; R_D; FD1–FD3), 192×576, fp32 with TF32 off. 17b:
    the first step at batch 1 on the card and on the CPU from one init and
-   batch (oneDNN off), at adam_eps 1e-3: the losses within 1e-3 relative,
+   batch (oneDNN off), at adam_eps 1e-3, at the JAX dryrun's reduced depth
+   (dense blocks 2,2,2,2, growth 16, mid_nc 256) and 192×192 (the CPU's
+   steps cost 12–40 s each at the full one): the losses within 1e-3 relative,
    and each phase again on the card from the CPU's input, its losses
    within 1e-3 and the net it updates by the three checks of the JAX
    tests' ``_assert_params_close``; each net's share of sign-flipped
@@ -116,7 +125,10 @@ and after phase 9 (the training path),
 before phase 10 and after phase 12 (the pix2pix path), and before and
 after each of phases 13 to 16 (bf16 training, remat, SegCycle, T2Net),
 17, 19, 20 and 21 (S2D and the base, two-trunk and semantic_trans
-generations, where they must stay 0) and 18b (rf_lw).
+generations, where they must stay 0) and 18b (rf_lw). The paths
+``parallel`` (23b), ``spatial`` (24a, the split entries) and ``pipeline``
+(24b) count in their ranks alone, each rank around its own steps; the
+one-process runs they are held against count on no path.
 18. RefineNet-LW (``--model rf_lw``) at the JAX package's full width
    (ResNetLW-101, four segd heads, 28 + 1 classes), 192×576. 18a (run
    right after phase 1b, with the other kernel checks): both InstanceNorm
@@ -221,6 +233,18 @@ generations, where they must stay 0) and 18b (rf_lw).
    17b holds the card against the CPU): its losses within 1e-3, every net
    by the three checks at its own lr. No scaling
    figure: two ranks on one card measure none.
+24. Spatial sharding and pipelines (``parallel/spatial.py``,
+   ``parallel/pipeline.py``). 24a, in 23b's spawn: the same full-width
+   CycleGAN step under ``--mesh_shape 1 2 --parallel sp`` (each rank 128
+   of every image's 256 rows; halo exchanges, the split InstanceNorm
+   entries with an all-reduce over ``model``, gradients summed over
+   ``model``), held against the one process by 23b's bars; every rank
+   192 launches of each split entry a step and none of the fused pair.
+   24b: the generator's 9-block trunk (256 channels, 64², batch 8, fp32)
+   as a 3-stage GPipe with 4 microbatches on three ranks sharing the card
+   over gloo, forward and gradients against the sequential trunk on one
+   process run twice; every rank 24 + 24 fused InstanceNorm launches. The
+   seconds are recorded, never a scaling figure.
 
 
 The last three lines
@@ -699,6 +723,167 @@ def phase_instance_norm_backward(gen, shapes=None, tag="1b",
     log(f"phase {tag} ok: instance_norm_bwd per fp32 {per} "
         f"({sum(shapes.values())} calls) {totals['ms']:.4f} ms (plain "
         f"{totals['plain_ms']:.4f}, autograd {totals['library_ms']:.4f})")
+    return totals, max_err
+
+
+# the split InstanceNorm entries (--parallel sp, the height over 'model'):
+# elementwise work a plane, bytes each reads and writes beside it
+SPLIT_FLOPS_PER_ELEM = {"in_stats": 3, "in_apply": 2, "in_bwd_stats": 5,
+                        "in_bwd_apply": 6}
+SPLIT_NAMES = tuple(SPLIT_FLOPS_PER_ELEM)
+SP_RANKS = 2            # phase 24a: the height over two ranks
+
+
+def split_bytes(name, x):
+    """Bytes ``name`` must move at ``x``'s shape: its planes once, each
+    (N, C) or (N, C, 2) fp32 array it reads or writes once."""
+    plane = x.numel() * x.element_size()
+    nc = x.shape[0] * x.shape[1] * 4
+    return {"in_stats": plane + 2 * nc,
+            "in_apply": 2 * plane + 2 * nc + 2 * nc,
+            "in_bwd_stats": 2 * plane + 2 * nc + 2 * nc,
+            "in_bwd_apply": 3 * plane + 2 * nc + 2 * nc}[name]
+
+
+def phase_instance_norm_split(gen):
+    """Phase 1c: the four split InstanceNorm entries (``in_stats``,
+    ``in_apply``, ``in_bwd_stats``, ``in_bwd_apply``) against their plain
+    versions on both ranks' rows of every plane of an sp CycleGAN step
+    (two ranks: the 31-row plane as 15 and 16 rows), fp32 and bf16, the
+    sums and statistics within 1e-5 of the largest, y and dx within 1e-4
+    (fp32) or 2 bf16 ulps, ``in_apply`` without statistics (the no-grad
+    forwards') equal to it with them; and the two shards' y and dx against
+    the fused kernels' on the whole plane, alike. Times (fp32, rank 0's
+    rows: the sp step's dtype) beside the plain versions and the byte
+    bound; returns each entry's sums over the calls of one sp step a rank,
+    and the largest error."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.ops.kernels import (
+        instance_norm as kin)
+    from cycle_depth_estimation_tpu_torch.parallel.mesh import row_range
+
+    entries = {n: getattr(kin, n) for n in SPLIT_NAMES}
+    plains = {n: getattr(kin, f"plain_{n}") for n in SPLIT_NAMES}
+    totals = {n: dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)
+              for n in SPLIT_NAMES}
+    max_err = 0.0
+
+    def close(got, want, dtype, what):
+        nonlocal max_err
+        err = (got.float() - want.float()).abs()
+        max_err = max(max_err, float(err.max()))
+        ok = (float(err.max()) <= 1e-4 if dtype == torch.float32
+              else bool((err <= 2 * bf16_ulp(want)).all()))
+        if not ok:
+            raise AssertionError(f"phase 1c {what} {dtype}: max abs err "
+                                 f"{float(err.max())}")
+
+    def rel(got, want, what):
+        err = float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if err > 1e-5:
+            raise AssertionError(f"phase 1c {what}: {err:.2e} of the "
+                                 "largest apart")
+
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for (n, c, h, w), calls in TRAIN_IN_SHAPES.items():
+            shape = (n, c, h // SP_RANKS, w)  # rank 0's rows
+            x = (torch.randn((n, c, h, w), generator=gen, device="cuda") * 3
+                 + 1).to(dtype)
+            dy = torch.randn((n, c, h, w), generator=gen, device="cuda"
+                             ).to(dtype)
+            rows = [row_range(h, SP_RANKS, r) for r in range(SP_RANKS)]
+            xs = [x[:, :, a:b].contiguous() for a, b in rows]
+            dys = [dy[:, :, a:b].contiguous() for a, b in rows]
+            count = h * w
+            tag = f"{tuple(shape)} of {h} rows"
+            parts = []
+            for p in xs:
+                got = kin.in_stats(p)
+                rel(got, kin.plain_in_stats(p), f"in_stats {tag}")
+                parts.append(got)
+            sums = sum(parts)
+            ys, stats = [], []
+            for p in xs:
+                y, st = kin.in_apply(p, sums, count)
+                y_p, st_p = kin.plain_in_apply(p, sums, count)
+                close(y, y_p, dtype, f"in_apply {tag}")
+                # the variant that keeps no statistics (no-grad forwards)
+                y_n, none = kin.in_apply(p, sums, count, stats=False)
+                if none is not None or not torch.equal(y_n, y):
+                    raise AssertionError(f"phase 1c in_apply {tag} without "
+                                         "statistics differs")
+                rel(st[1], st_p[1], f"in_apply rstd {tag}")
+                ys.append(y)
+                stats.append(st)
+            bparts = []
+            for p, d, st in zip(xs, dys, stats):
+                got = kin.in_bwd_stats(p, d, st)
+                rel(got, kin.plain_in_bwd_stats(p, d, st),
+                    f"in_bwd_stats {tag}")
+                bparts.append(got)
+            bsums = sum(bparts)
+            dxs = []
+            for p, d, st in zip(xs, dys, stats):
+                dx = kin.in_bwd_apply(p, d, st, bsums, count)
+                close(dx, kin.plain_in_bwd_apply(p, d, st, bsums, count),
+                      dtype, f"in_bwd_apply {tag}")
+                dxs.append(dx)
+            # the two shards against the fused kernels on the whole plane
+            xg = x.detach().requires_grad_(True)
+            with torch.enable_grad():
+                whole = kin.instance_norm(xg)
+            close(torch.cat(ys, 2), whole.detach(), dtype,
+                  f"two shards' y {tag}")
+            close(torch.cat(dxs, 2), torch.autograd.grad(whole, xg, dy)[0],
+                  dtype, f"two shards' dx {tag}")
+            if dtype == torch.float32:
+                p, d, (m, r) = xs[0], dys[0], stats[0]
+                runs = {
+                    "in_stats": ((p,), lambda fn, a: fn(a)),
+                    "in_apply": ((p, sums),
+                                 lambda fn, a, s_: fn(a, s_, count)),
+                    "in_bwd_stats": ((p, d, m, r), lambda fn, a, g, m_, r_:
+                                     fn(a, g, (m_, r_))),
+                    "in_bwd_apply": ((p, d, m, r, bsums),
+                                     lambda fn, a, g, m_, r_, s_:
+                                     fn(a, g, (m_, r_), s_, count)),
+                }
+                line = []
+                for name, (tensors, run) in runs.items():
+                    ins = copies_past_l2(*tensors)
+                    t_k = device_ms_per_call(
+                        lambda *ts, _f=entries[name], _r=run: _r(_f, *ts),
+                        ins)
+                    t_p = device_ms_per_call(
+                        lambda *ts, _f=plains[name], _r=run: _r(_f, *ts),
+                        ins)
+                    nbytes = split_bytes(name, p)
+                    flops = SPLIT_FLOPS_PER_ELEM[name] * p.numel()
+                    t_b, _ = bound(nbytes, flops)
+                    if t_k < t_b:
+                        raise AssertionError(f"{name} {tag}: {t_k} ms is "
+                                             f"under its bound {t_b} ms")
+                    tot = totals[name]
+                    tot["ms"] += calls * t_k
+                    tot["plain_ms"] += calls * t_p
+                    tot["bytes"] += calls * nbytes
+                    tot["flops"] += calls * flops
+                    line.append(f"{name} {t_k:.4f} ms (plain {t_p:.4f}, "
+                                f"bound {t_b:.4f}, {t_k / t_b:.2f}x)")
+                    del ins
+                log(f"phase 1c: {tuple(p.shape)} fp32 (x{calls} a rank per "
+                    f"sp step): " + "; ".join(line))
+            del x, dy, xs, dys, ys, dxs, xg, whole
+    log(f"phase 1c ok: split InstanceNorm entries on both ranks' rows of "
+        f"the {len(TRAIN_IN_SHAPES)} planes, fp32 and bf16, max_abs_err "
+        f"{max_err:.3g}; per fp32 sp step a rank ({TRAIN_PER_STEP} calls "
+        "each): "
+        + ", ".join(f"{n} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f})"
+                    for n, t in totals.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
     return totals, max_err
 
 
@@ -2168,6 +2353,12 @@ def phase_t2net(gen, cli):
 # (DenseNet growth 32, blocks (6, 12, 32, 32), mid_nc 1024, g1_blocks 3)
 S2D_H, S2D_W = 192, 576
 S2D_WIDTHS = {}               # config overrides; empty: the full width
+# 17b and 19a–21a hold the card against the CPU at the JAX dryrun's
+# reduced S2D depth (its CPU steps took 12–40 s each at the full one); the
+# full-width steps run on the card alone (17a, 19b–21c)
+CHECK_H, CHECK_W = 192, 192
+CHECK_WIDTHS = {"dense_block_config": [2, 2, 2, 2], "dense_growth_rate": 16,
+                "s2d_mid_nc": 256}
 S2D_BATCHES = (1, 8)
 S2D_NETS = ("G_1", "G_2", "R_D", "FD1", "FD2", "FD3")
 S2D_LR_DIVISOR = {"G_1": 5, "G_2": 3, "R_D": 2, "FD1": 4, "FD2": 4, "FD3": 4}
@@ -2286,12 +2477,13 @@ def phase_s2d_card_vs_cpu():
 
     from cycle_depth_estimation_tpu_torch.models import create_model
 
-    batch = s2d_batch(1)
+    batch = s2d_batch(1, size=(CHECK_H, CHECK_W))
     threads = torch.get_num_threads()
     eps = 1e-3
     t = time.perf_counter()
     with torch.backends.mkldnn.flags(enabled=False):
-        cpu_model = create_model(s2d_config(device="cpu", adam_eps=eps))
+        cpu_model = create_model(s2d_config(device="cpu", adam_eps=eps,
+                                            **CHECK_WIDTHS))
         cpu_state = cpu_model.init_state()
         p0 = s2d_params(cpu_state)
         ctx = cpu_model._ctx(batch)
@@ -2304,7 +2496,7 @@ def phase_s2d_card_vs_cpu():
     cpu_after = s2d_params(cpu_state)
     del cpu_model, cpu_state, ctx
     cpu_s = time.perf_counter() - t
-    model = create_model(s2d_config(adam_eps=eps))
+    model = create_model(s2d_config(adam_eps=eps, **CHECK_WIDTHS))
     state = model.init_state()
     state, m = model.train_step(state, on(batch, "cuda"))
     m_card = {k: float(v) for k, v in m.items()}
@@ -3355,10 +3547,11 @@ def base_first_step(name):
     pins = CriticPins() if is_pinned or name in BASE_SIGNS else None
     grads = GradPins()
     clip_norms = {"CPU": [], "card": []}
-    batch = s2d_batch(1, seed=17, size=(BASE_H, BASE_W))
+    batch = s2d_batch(1, seed=17, size=(CHECK_H, CHECK_W))
     t = time.perf_counter()
     with torch.backends.mkldnn.flags(enabled=False):
-        cpu_model = create_model(base_config(name, device="cpu"))
+        cpu_model = create_model(base_config(name, device="cpu",
+                                             **CHECK_WIDTHS))
         cpu_state = with_eps(cpu_model.init_state(), BASE_CHECK_EPS)
         p0 = s2d_params(cpu_state)
         ctx = cpu_model._ctx(state=cpu_state, batch=batch)
@@ -3392,7 +3585,7 @@ def base_first_step(name):
     cpu_after = s2d_params(cpu_state)
     del cpu_model, cpu_state, ctx
     cpu_s = time.perf_counter() - t
-    model = create_model(base_config(name))
+    model = create_model(base_config(name, **CHECK_WIDTHS))
     state = with_eps(model.init_state(), BASE_CHECK_EPS)
     card_pins = CriticPins()
     with (card_pins.record("step") if is_pinned
@@ -4104,6 +4297,8 @@ PAR_LOSS_REL = 1e-4
 PAR_S2D_LOSS_REL = 1e-3  # S2D's later phases read the earlier updates
 PAR_S2D = {"model": "S2D", "batch_size": 2}
 PAR_WIDTHS = {}         # config overrides of 23b's CycleGAN; empty: full
+SP_CASE = "sp"          # phase 24a, in 23b's spawn
+SP_LAYOUT = {"mesh_shape": [1, 2], "parallel": "sp"}
 
 
 def cycle_cli_args(tmp, name, *extra):
@@ -4266,6 +4461,9 @@ def phase_parallel_ranks():
                     (cyc, batch, layout, None, PAR_EPS, 1, True))
              for name, layout in PAR_LAYOUTS.items()}
     cases["S2D dp"] = (dryrun.phase_by_phase, (s2d, s2d_b))
+    # phase 24a: the same CycleGAN step with the height over 'model'
+    cases[SP_CASE] = (dryrun.model_step,
+                      (cyc, batch, SP_LAYOUT, None, PAR_EPS, 1, True))
     one, again = (dryrun.model_step(cyc, batch, {}, None, PAR_EPS, 1, True)
                   for _ in range(2))
     torch.cuda.empty_cache()
@@ -4280,14 +4478,19 @@ def phase_parallel_ranks():
     own = {k: float((g1[k].double() - again["grads"][k].double()).norm())
            for k in g1}
     lines, misses = [], []
-    for case in PAR_LAYOUTS:
+    for case in (*PAR_LAYOUTS, SP_CASE):
         worst = {"loss": 0.0, "past_lr": 0.0, "grad": (0.0, "")}
         for r in ranks:
-            got, tag = r[case], f"23b {case} rank {r[case]['rank']}"
+            got = r[case]
+            tag = (f"{'24a' if case == SP_CASE else '23b'} {case} rank "
+                   f"{got['rank']}")
             per = TRAIN_PER_STEP
-            if got["launches"] != [(per, per)]:
-                misses.append(f"{tag}: InstanceNorm launches "
-                              f"{got['launches']}, want {per} + {per}")
+            want = ([(per, per)], [(0,) * 4]) if case != SP_CASE else \
+                ([(0, 0)], [(per,) * 4])
+            if (got["launches"], got["split_launches"]) != want:
+                misses.append(f"{tag}: InstanceNorm launches fused "
+                              f"{got['launches']}, split "
+                              f"{got['split_launches']}, want {want}")
             loss = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-2)
                        for k, v in one["metrics"].items())
             if loss > PAR_LOSS_REL:
@@ -4335,7 +4538,9 @@ def phase_parallel_ranks():
                f"{worst['by_runs'][0]:.2f}× the two one-process runs' L2 "
                "distance" if "by_runs" in worst else "")
             + f"), past lr {worst['past_lr']:.2e}; launches "
-            f"{ranks[0][case]['launches'][0]} a rank a step; memory_report "
+            f"{ranks[0][case]['launches'][0]} fused, "
+            f"{ranks[0][case]['split_launches'][0]} split a rank a step "
+            f"({ranks[0][case]['seconds']:.1f} s); memory_report "
             f"replicated {rep['replicated_total_mib']} MiB, zero "
             f"{rep['zero_total_mib']} MiB a rank ({rep['mesh_axis']}); {mem}")
     s2d_lines = []
@@ -4367,10 +4572,110 @@ def phase_parallel_ranks():
         + " | S2D dp, phase by phase from one process: "
         + "; ".join(s2d_lines))
     if misses:
-        raise AssertionError("23b: " + "; ".join(misses))
+        raise AssertionError("23b/24a: " + "; ".join(misses))
     counted = [r[c]["launches"] for r in ranks for c in PAR_LAYOUTS]
+    split = [sum(r[SP_CASE]["split_launches"][0][i] for r in ranks)
+             for i in range(4)]
+    log(f"phase 24a ok: CycleGAN {N_BLOCKS} blocks ngf {NGF} {SIZE}^2 "
+        f"global batch {BATCH} under --mesh_shape 1 {SP_RANKS} --parallel "
+        f"sp ({SIZE // SP_RANKS} rows a rank) held against one process by "
+        "23b's bars; the split entries' launches "
+        + ", ".join(f"{n} {k}" for n, k in zip(SPLIT_NAMES, split))
+        + " over the ranks; the step "
+        f"{max(r[SP_CASE]['seconds'] for r in ranks):.1f} s a rank (two "
+        "ranks sharing the card over gloo: no timing of scaling)")
     return {"fwd": sum(f for ls in counted for f, _ in ls),
-            "bwd": sum(b for ls in counted for _, b in ls)}
+            "bwd": sum(b for ls in counted for _, b in ls),
+            "split": dict(zip(SPLIT_NAMES, split))}
+
+
+PIPE_STAGES, PIPE_MICRO = 3, 4   # phase 24b: the 9-block trunk
+
+
+def phase_pipeline():
+    """Phase 24b: the generator's 9-block trunk (256 channels, 64², batch
+    8, fp32, TF32 off, blocks from seeds 0–8) as a 3-stage GPipe with 4
+    microbatches on three ranks sharing the card over gloo
+    (``dryrun.pipeline_case``), against the sequential trunk on one
+    process run twice: the output and the input's gradient within 1e-4 of
+    the largest, each block's gradient (of Σ y²) within 1e-5 of the
+    largest and those that are not, together, within 4× the two runs' L2
+    distance on them (23b's bar); every rank 3 blocks × 2 InstanceNorms ×
+    4 microbatches of each fused kernel. Returns the launches."""
+    import torch
+
+    from cycle_depth_estimation_tpu_torch.parallel import dryrun
+
+    t = time.perf_counter()
+    c, hw = 4 * NGF, SIZE // 4
+    x = torch.randn(BATCH, c, hw, hw, generator=torch.Generator()
+                    .manual_seed(24)) * 0.5
+    one, again = (dryrun.sequential_trunk(x.cuda(), N_BLOCKS)
+                  for _ in range(2))
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t
+    layout = {"mesh_shape": [PIPE_STAGES], "mesh_axes": ["stage"]}
+    ranks = dryrun.spawn(dryrun.pipeline_case, PIPE_STAGES,
+                         (x, N_BLOCKS, layout, PIPE_MICRO),
+                         device="cuda", timeout=600, threads=2)
+    t_ranks = time.perf_counter() - t - t_one
+    misses = []
+    per = N_BLOCKS // PIPE_STAGES * 2 * PIPE_MICRO
+    grads = {f"{i}.{k}": g for i, b in enumerate(one["grads"])
+             for k, g in b.items()}
+    twice = {f"{i}.{k}": g for i, b in enumerate(again["grads"])
+             for k, g in b.items()}
+    big = max(float(g.abs().max()) for g in grads.values())
+    worst = {"grad": (0.0, "")}
+    for r, got in enumerate(ranks):
+        tag = f"24b rank {r}"
+        if got["launches"] != [per, per]:
+            misses.append(f"{tag}: InstanceNorm launches {got['launches']}, "
+                          f"want {per} + {per}")
+        for k in ("y", "dx"):
+            d = float((got[k] - one[k]).abs().max()) / float(
+                one[k].abs().max())
+            worst[k] = max(worst.get(k, 0.0), d)
+            if d > 1e-4:
+                misses.append(f"{tag}: {k} {d:.2e} of the largest apart")
+        mine = {f"{i}.{k}": g for i, b in enumerate(got["grads"])
+                for k, g in b.items()}
+        past = [k for k, g in grads.items()
+                if float((mine[k] - g).abs().max()) > PAR_GRAD_REL * big]
+        worst["grad"] = max(worst["grad"], max(
+            (float((mine[k] - g).abs().max()) / big, k)
+            for k, g in grads.items()))
+        if past:
+            l2 = math.sqrt(sum(float((mine[k].double() - grads[k].double())
+                                     .norm()) ** 2 for k in past))
+            runs = math.sqrt(sum(float((twice[k].double() - grads[k]
+                                        .double()).norm()) ** 2
+                                 for k in past))
+            worst["by_runs"] = max(worst.get("by_runs", (0.0, 0)),
+                                   (l2 / max(runs, 1e-30), len(past)))
+            if l2 > PAR_GRAD_RUNS * runs:
+                misses.append(f"{tag}: the {len(past)} gradients past 1e-5 "
+                              f"of the largest are {l2:.3e} apart in L2; "
+                              f"two one-process runs {runs:.3e}")
+    runs = max((float((twice[k] - g).abs().max()) / big, k)
+               for k, g in grads.items())
+    log(f"phase 24b: {N_BLOCKS}-block trunk ({c} ch, {hw}^2, batch "
+        f"{BATCH}, fp32) as a {PIPE_STAGES}-stage GPipe, {PIPE_MICRO} "
+        f"microbatches, on {PIPE_STAGES} ranks sharing the card over gloo "
+        f"({t_ranks:.1f} s) against the sequential trunk run twice "
+        f"({t_one:.1f} s; its runs' gradients ≤ {runs[0]:.2e} of the "
+        f"largest apart, {runs[1]}): y {worst['y']:.2e}, dx {worst['dx']:.2e}"
+        f" of the largest, gradients {worst['grad'][0]:.2e} of the largest "
+        f"({worst['grad'][1]}"
+        + (f"; the {worst['by_runs'][1]} past 1e-5 {worst['by_runs'][0]:.2f}×"
+           " the two runs' L2 distance" if "by_runs" in worst else "")
+        + f"); launches {per} + {per} a rank")
+    if misses:
+        raise AssertionError("24b: " + "; ".join(misses))
+    log(f"phase 24b: {time.perf_counter() - t:.1f} s")
+    return {"fwd": sum(r["launches"][0] for r in ranks),
+            "bwd": sum(r["launches"][1] for r in ranks)}
+
 
 
 LOADERS = {  # name: the train CLI's loader flags
@@ -4476,6 +4781,7 @@ def main() -> int:
         return 0
     in_tot, in_err = phase_instance_norm(gen)
     bwd_tot, bwd_err = phase_instance_norm_backward(gen)
+    split_tot, split_err = phase_instance_norm_split(gen)
     rf_kernels, rf_errs = phase_rf_lw_kernels(gen)
     ep_tot, ep_err = phase_epilogue(gen)
     phase_int8_conv(gen)
@@ -4572,14 +4878,23 @@ def main() -> int:
     finally:
         if "cli" in rf_cli:
             end_cli(rf_cli.pop("cli"), "rf_lw train CLI")
-    (_, par_ranks), parallel = counts_of(phase_parallel)
-    parallel = {"instance_norm": parallel["instance_norm"] + par_ranks["fwd"],
-                "instance_norm_bwd": (parallel["instance_norm_bwd"]
-                                      + par_ranks["bwd"])}
+    # phases 23b, 24a and 24b count in their ranks alone, each rank around
+    # its own steps: the one-process runs they are held against are no path
+    _, par_ranks = phase_parallel()
+    parallel = {"instance_norm": par_ranks["fwd"],
+                "instance_norm_bwd": par_ranks["bwd"]}
+    spatial = par_ranks["split"]  # 24a ran in 23b's spawn
+    for name, n in spatial.items():
+        if n == 0:
+            raise AssertionError(f"{name} was not launched on the spatial "
+                                 "path")
+    pipe_ranks = phase_pipeline()
+    pipeline = {"instance_norm": pipe_ranks["fwd"],
+                "instance_norm_bwd": pipe_ranks["bwd"]}
     later = {"bf16_and_fp32_training": bf16_train,
              "remat_and_plain": remat,
              "seg_cycle": seg_cycle, "t2net": t2net, "rf_lw": rf_lw,
-             "parallel": parallel}
+             "parallel": parallel, "pipeline": pipeline}
     for path, counts in (("serving", serving), ("training", training),
                          ("pix2pix", pix2pix), ("ptq", ptq_path),
                          *later.items()):
@@ -4633,6 +4948,20 @@ def main() -> int:
          "bound_ms": bwd_bound, "bound_by": bwd_by,
          "library_ms": bwd_tot["library_ms"],
          "rf_lw_step": rf_step_times(1)},
+        *({"name": name, "route": "triton", "source": in_source,
+           "replaces": ("cycle_depth_estimation_tpu/ops/pallas/"
+                        "instance_norm.py:"
+                        + ("105" if name.startswith("in_bwd") else "55")),
+           "launches": spatial[name],
+           "launches_by_path": {"spatial": spatial[name]},
+           "max_abs_err": split_err,
+           "ms": split_tot[name]["ms"],
+           "plain_ms": split_tot[name]["plain_ms"],
+           "bound_ms": bound(split_tot[name]["bytes"],
+                             split_tot[name]["flops"])[0],
+           "bound_by": bound(split_tot[name]["bytes"],
+                             split_tot[name]["flops"])[1],
+           "library_ms": None} for name in SPLIT_NAMES),
         {"name": "int8_epilogue", "route": "cuda",
          "source": "cycle_depth_estimation_tpu_torch/csrc/int8_epilogue.cu",
          "replaces": "cycle_depth_estimation_tpu/ops/pallas/int8_epilogue.py:137",
@@ -4667,7 +4996,8 @@ def main() -> int:
         "kernel "
         "ms are sums over the calls of one forward (23: instance_norm in "
         "bf16, int8_epilogue in bf16 up mode) or of one fp32 CycleGAN train "
-        f"step ({TRAIN_PER_STEP}: instance_norm_bwd); total "
+        f"step ({TRAIN_PER_STEP}: instance_norm_bwd; and a rank's under "
+        f"--parallel sp on {SP_RANKS} ranks: the split entries); total "
         f"{time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

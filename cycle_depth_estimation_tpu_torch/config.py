@@ -162,8 +162,9 @@ class Config:
     # (default: every rank on 'data'; a two-element shape: data model)
     mesh_shape: Optional[List[int]] = None
     mesh_axes: Optional[List[str]] = None
-    parallel: str = "dp"   # dp | tp (Megatron trunk, cycle_gan); sp and
-                           # pp are not in the port yet (ROADMAP A1b)
+    parallel: str = "dp"   # dp | tp (Megatron trunk, cycle_gan) | sp (the
+                           # height over 'model', cycle_gan); pipelines
+                           # are parallel/pipeline.py gpipe_apply
     zero: str = "off"      # off | opt (Adam moments split over 'data') |
                            # fsdp (parameters too)
     prefetch_depth: int = 2         # batches in flight to the device

@@ -157,17 +157,19 @@ class ProcessDataLoader(DataLoader):
             self._pool = None
 
 
-def prefetch_to_device(iterator, device, depth: int = 2
-                       ) -> Iterator[Dict[str, Any]]:
+def prefetch_to_device(iterator, device, depth: int = 2,
+                       spatial: bool = True) -> Iterator[Dict[str, Any]]:
     """Yield ``iterator``'s batches with every tensor on ``device``, the
     copies of the next ``depth`` batches already issued. To a CUDA device a
     tensor goes through pinned host memory and a non-blocking copy; other
     leaves (paths) pass through. Under data parallelism only this rank's
-    rows are moved (``parallel.mesh.host_shard_batch``)."""
+    rows are moved (``parallel.mesh.host_shard_batch``), and under
+    ``--parallel sp`` only its rows of their height unless ``spatial`` is
+    False (``--device_aug`` crops the whole height first)."""
     from ..parallel.mesh import host_shard_batch
 
     def put(batch):
-        return host_shard_batch(batch, device)
+        return host_shard_batch(batch, device, spatial=spatial)
 
     queue = collections.deque()
     it = iter(iterator)

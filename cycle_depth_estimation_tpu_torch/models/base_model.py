@@ -24,7 +24,8 @@ buffers.
 - ``optimizer_step``: every optimizer step of a train step. Under data
   parallelism it first averages the gradient over the ``data`` group
   (``parallel.collectives.sync_grads``; a ``ZeroOptimizer`` reduce-scatters
-  it), so a clip sees the global gradient; ``metrics_dict`` averages the
+  it), after summing it over ``model`` under ``--parallel sp``
+  (``sync_replicas``), so a clip sees the global gradient; ``metrics_dict`` averages the
   step's losses over ``data``, so they are global means as the JAX
   metrics are.
 """
@@ -136,7 +137,8 @@ class BaseModel:
     def optimizer_step(opt, max_norm: float = None) -> None:
         """Step ``opt`` on its parameters' ``.grad``: averaged over the
         ``data`` group first (and, for the parameters tensor parallelism
-        leaves whole, over ``model``), then clipped to the global norm
+        leaves whole, averaged over ``model``; under spatial parallelism
+        every one summed over ``model``), then clipped to the global norm
         ``max_norm`` (``clip_grad_global_norm_``) where one is given."""
         params = optimizer_params(opt)
         collectives.sync_replicas(params)
@@ -174,13 +176,13 @@ class BaseModel:
         optimizers = {k: (o.state_dict() if isinstance(o, ZeroOptimizer)
                           else gathered_optimizer_state(o))
                       for k, o in state.optimizers.items()}
+        pools = {k: p.state_dict() for k, p in state.pools.items()}
         if not collectives.is_writer():
             return paths
         os.makedirs(self.cfg.expr_dir(), exist_ok=True)
         for name in self.model_names:
             torch.save(nets[name], paths[name])
-        torch.save({"optimizers": optimizers,
-                    "pools": {k: p.state_dict() for k, p in state.pools.items()},
+        torch.save({"optimizers": optimizers, "pools": pools,
                     "step": state.step}, paths["train_state"])
         return paths
 

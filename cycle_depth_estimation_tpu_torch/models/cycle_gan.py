@@ -13,7 +13,9 @@ One train step is the JAX package's, in this order:
    G update, detached — and one Adam step on D;
 3. metrics: the G terms of step 1 and the last D pass's ``D_A``/``D_B``.
 
-Losses are fp32 means. ``--dtype bfloat16`` runs every conv in bf16 with
+Losses are fp32 means. Under ``--parallel sp`` (``parallel/spatial.py``)
+the four nets run on this rank's rows of the images, the means are over
+the whole planes, and ``eval_step`` gathers its visuals' height. ``--dtype bfloat16`` runs every conv in bf16 with
 fp32 parameters and Adam state (``ops.layers.set_compute_dtype``).
 ``--remat`` wraps each of the six generator applications in
 ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint``): backward runs the
@@ -35,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from . import register_model
 from ..config import Config
 from ..ops.layers import running_stats_kept, set_compute_dtype
+from ..parallel.collectives import gather_spatial
 from ..utils.image_pool import ImagePool
 from .base_model import BaseModel, ModelState, make_optimizer
 from .networks import define_D, define_G, gan_loss, l1_loss
@@ -196,4 +199,6 @@ class CycleGANModel(BaseModel):
         visuals = dict(real_A=real_A, fake_B=aux["fake_B"], rec_A=aux["rec_A"],
                        real_B=real_B, fake_A=aux["fake_A"], rec_B=aux["rec_B"],
                        idt_A=aux["idt_A"], idt_B=aux["idt_B"])
+        # under --parallel sp, each visual's whole height (over 'model')
+        visuals = {k: gather_spatial(v) for k, v in visuals.items()}
         return self._metrics(aux, loss_D_A, loss_D_B), visuals

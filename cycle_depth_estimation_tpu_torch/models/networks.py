@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.init import init_weights
+from ..parallel.collectives import spatial_mean
 from ..ops.layers import (Conv2d, ConvTranspose2d, InstanceNorm, Norm,
                           norm_uses_bias)
 
@@ -369,6 +370,8 @@ def biases_before_norm(net: nn.Module) -> set:
 # ---------------------------------------------------------------------------
 
 
+# Each loss is the mean of its elementwise terms (``collectives.spatial_mean``):
+# under ``--parallel sp`` over the whole planes the model group holds.
 def gan_loss(pred: torch.Tensor, target_is_real: bool,
              mode: str = "lsgan") -> torch.Tensor:
     """``lsgan``: MSE of the raw D output against 1/0. ``vanilla``: BCE on
@@ -376,18 +379,21 @@ def gan_loss(pred: torch.Tensor, target_is_real: bool,
     pred = pred.float()
     target = torch.full_like(pred, 1.0 if target_is_real else 0.0)
     if mode == "lsgan":
-        return F.mse_loss(pred, target)
-    if mode == "vanilla":
-        return F.binary_cross_entropy_with_logits(pred, target)
-    raise NotImplementedError(f"gan mode [{mode}] not implemented")
+        loss = F.mse_loss(pred, target, reduction="none")
+    elif mode == "vanilla":
+        loss = F.binary_cross_entropy_with_logits(pred, target,
+                                                  reduction="none")
+    else:
+        raise NotImplementedError(f"gan mode [{mode}] not implemented")
+    return spatial_mean(loss)
 
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return F.l1_loss(a.float(), b.float())
+    return spatial_mean((a.float() - b.float()).abs())
 
 
 def mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return F.mse_loss(a.float(), b.float())
+    return spatial_mean(F.mse_loss(a.float(), b.float(), reduction="none"))
 
 
 def lr_schedule(policy: str, base_lr: float, *, epoch: int, niter: int = 5,

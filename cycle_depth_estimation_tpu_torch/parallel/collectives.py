@@ -18,6 +18,16 @@ step on its rows, and these helpers rebuild that equality:
 - ``global_rows`` / ``local_rows``: draw at the global batch's shape, keep
   this rank's rows; ``mean_over_data``: the metrics a step returns.
 
+Under ``--parallel sp`` (``Groups.spatial``) the ``model`` group splits
+each image's height instead of channels: ``spatial_mean`` is an
+elementwise loss's mean over the whole plane (its sum and count summed
+over ``model``, the sum's gradient passed through as Megatron's *g* does,
+because every ``model`` rank computes the same loss from it), and
+``sync_replicas`` sums each parameter's gradient over ``model`` (each rank
+holds its rows' part) before ``sync_grads`` averages it over ``data``.
+``all_gather_uneven`` gathers shards of differing sizes (the rows of a
+plane that does not divide by the group).
+
 Each rank makes the same collectives in the same order. ``activate`` names
 this process's ``data`` and ``model`` groups (the train CLI does, once);
 while none is active every helper is the single-process computation, with
@@ -52,6 +62,10 @@ class Groups:
     model: Optional[dist.ProcessGroup] = None
     model_size: int = 1
     model_rank: int = 0
+    stage: Optional[dist.ProcessGroup] = None
+    stage_size: int = 1
+    stage_rank: int = 0
+    spatial: bool = False  # ``model`` splits the image height (sp)
 
 
 _ACTIVE = Groups()
@@ -106,6 +120,20 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(h) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, h, group=group)
     return torch.cat(parts, dim).to(t.device)
+
+
+def all_gather_uneven(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in group-rank order,
+    where their sizes along ``dim`` may differ (no gradient)."""
+    n = dist.get_world_size(group)
+    sizes = torch.tensor([t.shape[dim]], dtype=torch.int64)
+    sizes = all_gather_cat(sizes.to(t.device), group).tolist()
+    big = max(sizes)
+    pad = [0, 0] * (t.dim() - 1 - dim) + [0, big - t.shape[dim]]
+    full = all_gather_cat(torch.nn.functional.pad(t.detach(), pad), group,
+                          dim)
+    return torch.cat([full.narrow(dim, r * big, sizes[r]) for r in range(n)],
+                     dim)
 
 
 def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -235,8 +263,9 @@ def mean_over_data(metrics: Dict[str, torch.Tensor]
 
 
 def _average(grads: List[torch.Tensor], group, size: int) -> None:
-    """Average ``grads`` over ``group`` in place, in flat buckets of up to
-    ``BUCKET_BYTES`` per dtype and device."""
+    """Average ``grads`` over ``group`` in place (the sum divided by
+    ``size``; 1 for the sum), in flat buckets of up to ``BUCKET_BYTES``
+    per dtype and device."""
     buckets: Dict[tuple, List[List[torch.Tensor]]] = {}
     for g in grads:
         runs = buckets.setdefault((g.dtype, g.device), [[]])
@@ -248,23 +277,50 @@ def _average(grads: List[torch.Tensor], group, size: int) -> None:
         for run in runs:
             flat = torch.cat([g.reshape(-1) for g in run])
             all_reduce_(flat, group)
-            flat /= size
+            if size != 1:
+                flat /= size
             for g, v in zip(run, flat.split([g.numel() for g in run])):
                 g.copy_(v.view_as(g))
 
 
 def sync_replicas(params: Iterable[torch.Tensor]) -> None:
-    """Average over ``model`` the ``.grad`` of the parameters of ``params``
-    that are not split over it: the ranks of one ``data`` index compute
-    them alike, up to cuDNN's order of summation, and the average keeps
-    their replicas equal. A ``None`` gradient becomes zeros first."""
+    """Over ``model``, the ``.grad`` of the parameters of ``params`` that
+    are not split over it: under tensor parallelism averaged (the ranks of
+    one ``data`` index compute them alike, up to cuDNN's order of
+    summation, and the average keeps their replicas equal); under spatial
+    parallelism summed (each rank's is its rows' part). A ``None``
+    gradient becomes zeros first."""
     if _ACTIVE.model is None or _ACTIVE.model_size == 1:
         return
     whole = [p for p in params if getattr(p, "tp_dim", None) is None]
     for p in whole:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    _average([p.grad for p in whole], _ACTIVE.model, _ACTIVE.model_size)
+    _average([p.grad for p in whole], _ACTIVE.model,
+             1 if _ACTIVE.spatial else _ACTIVE.model_size)
+
+
+def spatial_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of the elementwise loss ``t``: over this rank's rows, or,
+    under ``--parallel sp``, over the whole planes, the sum and the count
+    summed over ``model`` (the sum's gradient passed through: every
+    ``model`` rank computes the same loss from it)."""
+    g = _ACTIVE
+    if not g.spatial or g.model is None or g.model_size == 1:
+        return t.mean()
+    num = t.sum()
+    both = reduce_from_model(
+        torch.stack([num, num.new_tensor(float(t.numel()))]), g.model)
+    return both[0] / both[1]
+
+
+def gather_spatial(t: torch.Tensor, dim: int = 2) -> torch.Tensor:
+    """Under ``--parallel sp``, the whole height of this rank's rows ``t``
+    (gathered over ``model``, no gradient); else ``t``."""
+    g = _ACTIVE
+    if not g.spatial or g.model is None or g.model_size == 1:
+        return t
+    return all_gather_uneven(t, g.model, dim)
 
 
 def sync_grads(params: Iterable[torch.Tensor]) -> None:

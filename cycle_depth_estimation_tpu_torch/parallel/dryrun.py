@@ -1,6 +1,5 @@
 """Every layout of ``parallel/`` on spawned ranks, held against one process
-(the port's counterpart of the JAX ``__graft_entry__.dryrun_multichip``,
-without its dp×sp and pipeline stages, which are ROADMAP A1b)::
+(the port's counterpart of the JAX ``__graft_entry__.dryrun_multichip``)::
 
     python -m cycle_depth_estimation_tpu_torch.parallel.dryrun [N]
 
@@ -13,7 +12,16 @@ stage printing a stamped line:
    ``model``, against the unsharded net;
 3. the S2D four-phase step under ``dp`` at the reduced config (dense
    blocks 2,2,2,2, growth 16, mid 256, 192², ``adam_eps`` 1e-3; below 192²
-   the FD critics' outputs are empty and their means NaN).
+   the FD critics' outputs are empty and their means NaN);
+4. dp×sp (N ≥ 4): the generator (ngf 8, 2 blocks) forward on a (N/4, 4)
+   mesh, the height split over ``model``, against the unsharded forward
+   (atol 2e-5, rtol 1e-4, the JAX stage's);
+5. pp (N ≥ 4): 8 residual blocks as a 4-stage GPipe (``gpipe_apply``, 4
+   microbatches), forward and gradients against the sequential trunk;
+6. dp×pp (N ≥ 4): the same on a (N/4, 4) ``('data', 'stage')`` mesh;
+7. the CycleGAN step (ngf 4, 32²) under dp×sp on a (N/2, 2) mesh
+   against one process: the synced generator gradients within 1e-5 of
+   the largest, the losses and the pooled parameter checks.
 
 ``spawn`` starts the ranks (a Python process a rank, each in a session of
 its own, a free localhost port, one timeout for the world; every process
@@ -128,6 +136,13 @@ def spawn(fn: Callable, n: int, args: Sequence = (), device: str = "cpu",
 
 
 # ---- a rank's work -------------------------------------------------------
+def rank_device() -> str:
+    """This rank's device: the card ``init_distributed`` set, where the
+    rank runs on CUDA, else the CPU."""
+    return ("cuda" if torch.cuda.is_available()
+            and torch.cuda.is_initialized() else "cpu")
+
+
 def layout_groups(layout: Dict[str, Any]):
     """The active groups for ``layout`` ({mesh_shape, mesh_axes}) when a
     process group exists, else the single-process ones."""
@@ -137,7 +152,7 @@ def layout_groups(layout: Dict[str, Any]):
         return collectives.Groups()
     m = mesh.make_mesh(layout.get("mesh_shape"), layout.get("mesh_axes"),
                        "cuda" if torch.cuda.is_initialized() else "cpu")
-    return mesh.mesh_groups(m)
+    return mesh.mesh_groups(m, spatial=layout.get("parallel") == "sp")
 
 
 def _whole_grads(state, names) -> Dict[str, torch.Tensor]:
@@ -209,11 +224,14 @@ def model_step(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor],
     as the train CLI does, then ``steps`` train steps on this rank's rows. Returns the metrics of the
     last step, the whole state dicts after it, the InstanceNorm launches of
     each step, the memory report of the state before its layout and the
-    bytes this rank holds after the steps; with ``g_grads`` (CycleGAN) the
-    generator gradient of the first step after the sync."""
+    bytes this rank holds after the steps, the split InstanceNorm entries'
+    launches of each step (``--parallel sp``) and the steps' seconds; with
+    ``g_grads`` (CycleGAN) the generator gradient of the first step after
+    the sync."""
     from ..config import Config, apply_model_defaults
     from ..device import set_precision
     from ..models import create_model
+    from ..ops.kernels import instance_norm as kin
     from ..ops.kernels.instance_norm import (instance_norm,
                                              instance_norm_backward)
     from ..train import place_state
@@ -224,8 +242,7 @@ def model_step(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor],
         state_trees
 
     layout = dict(layout or {})
-    device = ("cuda" if torch.cuda.is_available()
-              and torch.cuda.is_initialized() else "cpu")
+    device = rank_device()
     kw = {"device": device, **cfg_kw,
           **{k: v for k, v in layout.items()
              if k in ("mesh_shape", "mesh_axes", "parallel", "zero")}}
@@ -253,14 +270,22 @@ def model_step(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor],
                "memory_report": report}
         if g_grads:
             out["grads"] = _g_phase_grads(model, state, local)
-        launches = []
+        launches, split = [], []
+        split_fns = (kin.in_stats, kin.in_apply, kin.in_bwd_stats,
+                     kin.in_bwd_apply)
+        t0 = time.perf_counter()
         for _ in range(steps):
             f0, b0 = instance_norm.launches, instance_norm_backward.launches
+            s0 = [f.launches for f in split_fns]
             state, metrics = model.train_step(state, local)
             launches.append((instance_norm.launches - f0,
                              instance_norm_backward.launches - b0))
+            split.append(tuple(f.launches - n for f, n in zip(split_fns,
+                                                              s0)))
         if device == "cuda":
             torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["split_launches"] = split
         out["resident_bytes"] = resident_bytes(state)
         out["allocated_bytes"] = (torch.cuda.memory_allocated()
                                   if device == "cuda" else 0)
@@ -355,8 +380,7 @@ def phase_by_phase(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor]
     from ..models import create_model
     from . import collectives
 
-    device = ("cuda" if torch.cuda.is_available()
-              and torch.cuda.is_initialized() else "cpu")
+    device = rank_device()
     kw = {"device": device, **cfg_kw}
     cfg = apply_model_defaults(Config(**kw), set(kw))
     set_precision(cfg.tpu_precision)
@@ -454,6 +478,151 @@ def tp_case(cfg_kw, x, layout):
         collectives.activate(prev)
 
 
+def sp_forward_case(x: torch.Tensor, layout: Dict[str, Any], ngf: int,
+                    n_blocks: int, sd: Optional[Dict[str, torch.Tensor]]
+                    = None, grads: bool = False) -> Dict[str, Any]:
+    """A ``ResnetGenerator`` (from seed 0, or ``sd``) on this rank's block
+    of ``x`` on the ``make_2d_mesh`` of ``layout['mesh_shape']``
+    (``shard_spatial``: the height over ``model``), TF32 off, on this
+    rank's device: its
+    output gathered whole, and with ``grads`` the input's and the
+    parameters' gradients of the global mean of y², synced."""
+    from ..device import set_precision
+    from ..models.networks import ResnetGenerator
+    from ..ops.init import init_weights
+    from . import collectives
+    from .mesh import mesh_groups
+    from .spatial import make_2d_mesh, shard_spatial, spatial
+
+    set_precision("highest")
+    x = x.to(rank_device())
+    shape = layout.get("mesh_shape")
+    if shape and torch.distributed.is_initialized():
+        mesh = make_2d_mesh(*shape, device_type=x.device.type)
+        groups = mesh_groups(mesh, spatial=True)
+        xs = shard_spatial(mesh, x)
+    else:
+        groups, xs = collectives.Groups(), x
+    prev = collectives.activate(groups)
+    try:
+        net = init_weights(ResnetGenerator(3, 3, ngf, n_blocks), "normal",
+                           0.02, torch.Generator().manual_seed(0))
+        if sd is not None:
+            net.load_state_dict(sd)
+        net.to(x.device)
+        if groups.model is not None:
+            spatial(net, groups.model)
+        xs = xs.clone().requires_grad_(grads)
+        y = net(xs)
+        out = {"y": collectives.gather_rows(
+            collectives.gather_spatial(y.detach())).cpu()}
+        if grads:
+            collectives.spatial_mean(y.float() ** 2).backward()
+            collectives.sync_replicas(net.parameters())
+            collectives.sync_grads(net.parameters())
+            # a rank's loss is its data rows' mean: its rows' gradient is
+            # data_size times the global mean's (sync_grads averages the
+            # parameters' so)
+            out["dx"] = collectives.gather_rows(collectives.gather_spatial(
+                xs.grad)).cpu() / groups.data_size
+            out["grads"] = {k: p.grad.cpu()
+                            for k, p in net.named_parameters()}
+        return out
+    finally:
+        collectives.activate(prev)
+
+
+def trunk_blocks(n: int, dim: int, seed: int = 0, sds=None):
+    """``n`` residual blocks of width ``dim``, each from ``seed + i`` (or
+    the state dicts ``sds``)."""
+    from ..models.networks import ResnetBlock
+    from ..ops.init import init_weights
+
+    blocks = []
+    for i in range(n):
+        b = init_weights(ResnetBlock(dim), "normal", 0.02,
+                         torch.Generator().manual_seed(seed + i))
+        if sds is not None:
+            b.load_state_dict(sds[i])
+        blocks.append(b)
+    return blocks
+
+
+def pipeline_case(x: torch.Tensor, n_blocks: int, layout: Dict[str, Any],
+                  n_microbatches: int, data_axis: Optional[str] = None,
+                  sds=None, dtype=None, grads: bool = True
+                  ) -> Dict[str, Any]:
+    """``n_blocks`` residual blocks (``trunk_blocks``) as a GPipe over the
+    ``stage`` axis of ``layout`` (``gpipe_apply``), TF32 off, on this
+    rank's device: the output, and with
+    ``grads`` the gradients of Σ y² for x and every block's parameters
+    (each rank's part summed over ``stage`` and ``data``), and the
+    InstanceNorm launches of this rank."""
+    from ..device import set_precision
+    from ..ops.kernels.instance_norm import (instance_norm,
+                                             instance_norm_backward)
+    from ..ops.layers import set_compute_dtype
+    from . import collectives
+    from .pipeline import gpipe_apply, stack_stage_params
+
+    set_precision("highest")
+    x = x.to(rank_device())
+    groups = layout_groups(layout)
+    blocks = [set_compute_dtype(b.to(x.device), dtype) for b in
+              trunk_blocks(n_blocks, x.shape[1], sds=sds)]
+    shell = blocks[0]
+    xx = x.clone().requires_grad_(grads)
+    f0, b0 = instance_norm.launches, instance_norm_backward.launches
+    y = gpipe_apply(
+        lambda p, h: torch.func.functional_call(shell, p, (h,)),
+        stack_stage_params(blocks, groups.stage_size), xx, groups,
+        n_microbatches, data_axis)
+    out = {"y": y.detach().cpu(), "launches": [
+        instance_norm.launches - f0, 0]}
+    if grads:
+        (y.float() ** 2).sum().backward()
+        out["launches"][1] = instance_norm_backward.launches - b0
+        out["dx"] = xx.grad.cpu()
+        gs = []
+        for b in blocks:
+            g = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                 for k, p in b.named_parameters()}
+            for v in g.values():
+                for grp in (groups.stage, groups.data):
+                    if grp is not None:
+                        collectives.all_reduce_(v, grp)
+            gs.append({k: v.cpu() for k, v in g.items()})
+        out["grads"] = gs
+    return out
+
+
+def sequential_trunk(x: torch.Tensor, n_blocks: int, sds=None, dtype=None
+                     ) -> Dict[str, Any]:
+    """``pipeline_case``'s trunk applied block after block in one
+    process (on ``x``'s device): the output and the gradients of Σ y²."""
+    from ..ops.layers import set_compute_dtype
+
+    blocks = [set_compute_dtype(b.to(x.device), dtype) for b in
+              trunk_blocks(n_blocks, x.shape[1], sds=sds)]
+    xx = x.clone().requires_grad_(True)
+    y = xx
+    for b in blocks:
+        y = b(y)
+    (y.float() ** 2).sum().backward()
+    return {"y": y.detach().cpu(), "dx": xx.grad.cpu(),
+            "grads": [{k: p.grad.cpu() for k, p in b.named_parameters()}
+                      for b in blocks]}
+
+
+def grads_apart(got: Dict[str, torch.Tensor],
+                want: Dict[str, torch.Tensor]):
+    """The largest difference of two gradient sets over the largest
+    gradient, and the tensor where it is."""
+    big = max(float(g.abs().max()) for g in want.values())
+    return max((float((got[k] - g).abs().max()) / big, k)
+               for k, g in want.items())
+
+
 def s2d_batch_of(n: int, h: int, w: int, seed: int = 11):
     """A seeded ``try`` batch: images in [-1, 1], 28-class labels with a
     band of sky (class 17), depth in [-1, 1] and ±1 bands."""
@@ -469,8 +638,9 @@ def s2d_batch_of(n: int, h: int, w: int, seed: int = 11):
 
 
 def dryrun_multichip(n: int = 2, timeout: float = 600.0) -> Dict[str, Any]:
-    """The three stages on ``n`` spawned CPU ranks; raises on a miss and
-    returns each stage's figures."""
+    """The stages on ``n`` spawned CPU ranks (4–6 need n ≥ 4 and a
+    multiple of 4, 7 an even n); raises on a miss and returns each
+    stage's figures."""
     out = {}
     gen = torch.Generator().manual_seed(0)
     cyc = dict(model="cycle_gan", ngf=8, ndf=8, net_g="resnet_3blocks",
@@ -519,6 +689,76 @@ def dryrun_multichip(n: int = 2, timeout: float = 600.0) -> Dict[str, Any]:
                      if v == v}
     stamp(f"stage 3: S2D 4-phase dp step on {n} ranks == one process "
           f"(losses apart ≤ {max(out['s2d_dp'].values()):.2e})")
+
+    if n >= 4 and n % 4 == 0:
+        x = torch.rand(n // 4, 3, 64, 64, generator=gen)
+        ref = sp_forward_case(x, {}, 8, 2)
+        shape = [n // 4, 4]
+        got = spawn(sp_forward_case, n, (x, {"mesh_shape": shape}, 8, 2),
+                    timeout=timeout)
+        err = max(float((r["y"] - ref["y"]).abs().max()) for r in got)
+        for r in got:
+            torch.testing.assert_close(r["y"], ref["y"], atol=2e-5,
+                                       rtol=1e-4)
+        out["dp_sp"] = err
+        stamp(f"stage 4: dp×sp mesh {shape} generator forward, the height "
+              f"split over 'model' == unsharded (y {err:.2e})")
+
+        xb = torch.rand(4, 8, 8, 8, generator=gen)
+        ref = sequential_trunk(xb, 8)
+        for stage, layout, m, axis in (
+                ("5: pp", {"mesh_shape": [n], "mesh_axes": ["stage"]}, 4,
+                 None),
+                ("6: dp×pp", {"mesh_shape": [n // 4, 4],
+                              "mesh_axes": ["data", "stage"]}, 2, "data")):
+            if n != 4 and axis is None:
+                layout = {"mesh_shape": [n // 4, 4],
+                          "mesh_axes": ["data", "stage"]}
+            got = spawn(pipeline_case, n, (xb, 8, layout, m, axis),
+                        timeout=timeout)
+            err_y = max(float((r["y"] - ref["y"]).abs().max()) for r in got)
+            err_g = max(max(grads_apart(g, w)[0] for g, w in
+                            zip(r["grads"], ref["grads"])) for r in got)
+            for r in got:
+                torch.testing.assert_close(r["y"], ref["y"], atol=2e-5,
+                                           rtol=1e-4)
+            if err_g > 1e-5:
+                raise AssertionError(f"stage {stage} gradients {err_g:.2e} "
+                                     "of the largest apart")
+            out[stage.split()[1]] = {"y": err_y, "grads": err_g}
+            stamp(f"stage {stage} GPipe of 8 blocks on 4 stages, {m} "
+                  f"microbatches == sequential (y {err_y:.2e}, grads "
+                  f"{err_g:.2e} of the largest)")
+
+    if n % 2 == 0:
+        layout = {"mesh_shape": [n // 2, 2], "parallel": "sp"}
+        # the CPU test's width: at ngf 8 the forward's rounding flips a
+        # few ReLU masks on some inputs, moving single gradients past 1e-5
+        cyc = dict(model="cycle_gan", ngf=4, ndf=4, net_g="resnet_3blocks",
+                   fine_size=32, batch_size=n // 2 * 2, pool_size=n * 2,
+                   d_steps_per_g=2)
+        batch = {k: torch.rand(n // 2 * 2, 3, 32, 32, generator=gen) * 2 - 1
+                 for k in ("img_source", "img_target")}
+        one = model_step(cyc, batch, {}, None, 1e-2, 1, True)
+        ranks = spawn(model_step, n, (cyc, batch, layout, None, 1e-2, 1,
+                                      True), timeout=timeout)
+        err_g = max(grads_apart(r["grads"], one["grads"])[0] for r in ranks)
+        if err_g > 1e-5:
+            raise AssertionError(f"dp×sp CycleGAN gradients {err_g:.2e} of "
+                                 "the largest apart")
+        for name, want in one["params"].items():
+            for r in ranks:
+                pooled_params_close(r["params"][name], want, 2e-4,
+                                    f"cycle_gan dp×sp {name} rank "
+                                    f"{r['rank']}")
+        loss = max(abs(r["metrics"][k] - v) for r in ranks
+                   for k, v in one["metrics"].items())
+        if loss > 1e-4:
+            raise AssertionError(f"dp×sp CycleGAN losses {loss:.2e} apart")
+        out["cycle_gan_dp_sp"] = {"grads": err_g, "losses": loss}
+        stamp(f"stage 7: CycleGAN dp×sp step on mesh {layout['mesh_shape']}"
+              f" == one process (gradients {err_g:.2e} of the largest, "
+              f"losses {loss:.2e})")
     return out
 
 

@@ -18,7 +18,11 @@ from the configuration, never from a failed attempt.
 
 ``host_shard_batch`` gives a rank its rows of the global batch, in rank
 order of ``data``: ranks on one ``data`` index and different ``model``
-indices get the same rows.
+indices get the same rows. Under ``--parallel sp`` (the active groups'
+``spatial``) it then cuts the height of every tensor of rank ≥ 3 (NCHW
+images, NHW label maps: the dimension before the last) over ``model``:
+rank m takes rows ``[m·H//M, (m+1)·H//M)`` (``row_range``), the JAX
+package's split of H over the ``model`` axis.
 """
 
 from __future__ import annotations
@@ -134,12 +138,13 @@ def mesh_layout(shape, axis_names, world: int):
     return list(shape), tuple(axis_names)
 
 
-def mesh_groups(mesh) -> Groups:
-    """This rank's ``data`` and ``model`` groups on ``mesh`` (an axis the
-    mesh lacks has this rank alone, and no group)."""
+def mesh_groups(mesh, spatial: bool = False) -> Groups:
+    """This rank's ``data``, ``model`` and ``stage`` groups on ``mesh`` (an
+    axis the mesh lacks has this rank alone, and no group); ``spatial``:
+    ``model`` splits the image height (``--parallel sp``)."""
     names = mesh.mesh_dim_names
-    kw = {}
-    for axis in ("data", "model"):
+    kw = {"spatial": spatial}
+    for axis in ("data", "model", "stage"):
         if axis in names:
             kw[axis] = mesh.get_group(axis)
             kw[f"{axis}_size"] = mesh.size(names.index(axis))
@@ -175,26 +180,59 @@ def rows_of(n: int, size: int, index: int) -> slice:
     return slice(index * k, (index + 1) * k)
 
 
-def shard_batch(batch: Dict[str, object], size: Optional[int] = None,
-                index: Optional[int] = None) -> Dict[str, object]:
-    """This rank's rows of every tensor (and list) of a global batch; by
-    default of the active ``data`` group."""
+def row_range(n: int, size: int, index: int):
+    """Rank ``index``'s rows ``(start, stop)`` of ``n`` rows split over
+    ``size`` ranks: ``[index·n//size, (index+1)·n//size)``; the sizes
+    differ by at most one where ``n`` does not divide."""
+    return index * n // size, (index + 1) * n // size
+
+
+def spatial_rows(batch: Dict[str, object], size: Optional[int] = None,
+                 index: Optional[int] = None) -> Dict[str, object]:
+    """This rank's rows of the height of every tensor of rank ≥ 3 of
+    ``batch`` (``row_range``); by default over the active ``model`` group
+    under ``--parallel sp``, else the batch as it is."""
     g = collectives.active()
-    size = g.data_size if size is None else size
-    index = g.data_rank if index is None else index
+    if size is None:
+        if not g.spatial:
+            return batch
+        size, index = g.model_size, g.model_rank
     if size == 1:
         return batch
     out = {}
     for k, v in batch.items():
-        if isinstance(v, (torch.Tensor, list)):
-            v = v[rows_of(len(v), size, index)]
+        if isinstance(v, torch.Tensor) and v.dim() >= 3:
+            h = v.dim() - 2
+            a, b = row_range(v.shape[h], size, index)
+            v = v.narrow(h, a, b - a)
         out[k] = v
     return out
 
 
+def shard_batch(batch: Dict[str, object], size: Optional[int] = None,
+                index: Optional[int] = None,
+                spatial: bool = True) -> Dict[str, object]:
+    """This rank's rows of every tensor (and list) of a global batch; by
+    default of the active ``data`` group, and then, under ``--parallel sp``
+    and unless ``spatial`` is False, its rows of their height
+    (``spatial_rows``)."""
+    g = collectives.active()
+    size = g.data_size if size is None else size
+    index = g.data_rank if index is None else index
+    out = batch
+    if size != 1:
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, (torch.Tensor, list)):
+                v = v[rows_of(len(v), size, index)]
+            out[k] = v
+    return spatial_rows(out) if spatial else out
+
+
 def host_shard_batch(batch: Dict[str, object], device,
                      size: Optional[int] = None,
-                     index: Optional[int] = None) -> Dict[str, object]:
+                     index: Optional[int] = None,
+                     spatial: bool = True) -> Dict[str, object]:
     """``shard_batch`` of a host batch, its tensors copied to ``device``
     (through pinned memory to a CUDA device): the host→device boundary,
     one transfer of the rank's rows a step."""
@@ -202,4 +240,4 @@ def host_shard_batch(batch: Dict[str, object], device,
     pin = device.type == "cuda"
     return {k: (v.pin_memory() if pin else v).to(device, non_blocking=pin)
             if isinstance(v, torch.Tensor) else v
-            for k, v in shard_batch(batch, size, index).items()}
+            for k, v in shard_batch(batch, size, index, spatial).items()}

@@ -68,8 +68,11 @@ gradients, BatchNorm statistics, pool queries, masked means and losses are
 global (``parallel/``). ``--mesh_shape D M`` puts the ranks on ``data`` ×
 ``model``; ``place_state`` lays the state out: ``--zero opt|fsdp`` splits
 Adam's moments (and the parameters) over ``data``, ``--parallel tp`` the
-CycleGAN generators' trunk channels over ``model``. ``--parallel sp`` and
-pipelines are not in the port yet (ROADMAP A1b). The backend is NCCL when
+CycleGAN generators' trunk channels over ``model``, ``--parallel sp`` the
+images' height over ``model`` (``parallel/spatial.py``: cycle_gan with a
+resnet generator, a basic or n_layers discriminator and InstanceNorm).
+Pipelines are a library call (``parallel/pipeline.py``
+``gpipe_apply``), not a CLI mode. The backend is NCCL when
 every rank has its own card, gloo otherwise (printed first). Rank 0 alone
 prints, logs, writes visuals and the page, and writes the checkpoints,
 which hold whole tensors.
@@ -104,7 +107,8 @@ def main(argv=None):
     else:
         device = pmesh.init_distributed(**world, device=cfg.device)
         groups = pmesh.mesh_groups(pmesh.make_mesh(
-            cfg.mesh_shape, cfg.mesh_axes, device.type))
+            cfg.mesh_shape, cfg.mesh_axes, device.type),
+            spatial=cfg.parallel == "sp")
     check_layout(cfg, groups, distributed=world is not None)
     collectives.activate(groups)
     writer = collectives.is_writer()
@@ -112,10 +116,13 @@ def main(argv=None):
     torch.manual_seed(cfg.seed + 1)
 
     def to_device(loader, aug_cfg, seed):
-        batches = prefetch_to_device(loader, device, depth=cfg.prefetch_depth)
+        # under --parallel sp a rank crops its data rows at the whole
+        # height, then keeps its rows of it
+        batches = prefetch_to_device(loader, device, depth=cfg.prefetch_depth,
+                                     spatial=not cfg.device_aug)
         if cfg.device_aug:
-            batches = wrap_for_config(
-                batches, aug_cfg, torch.Generator(device).manual_seed(seed))
+            batches = map(pmesh.spatial_rows, wrap_for_config(
+                batches, aug_cfg, torch.Generator(device).manual_seed(seed)))
         return batches
 
     message = print_options(cfg)
@@ -169,8 +176,12 @@ def place_state(cfg, state, groups, distributed: bool = True):
       resnet trunks and their Adam moments over ``model``
       (``parallel/tensor.py``); with ``--zero`` the rest takes ZeRO's
       layout;
-    - ``--parallel sp`` and pipelines: not in the port yet (ROADMAP A1b).
+    - ``--parallel sp``: the state stays replicated, the four nets run on
+      this rank's rows of the images (``parallel/spatial.py``), the
+      batch's height is split at the host→device boundary; with
+      ``--zero`` ZeRO's layout over ``data``.
     """
+    from .parallel.spatial import spatial_state
     from .parallel.tensor import shard_state_tp
     from .parallel.zero import zero_state
 
@@ -181,6 +192,8 @@ def place_state(cfg, state, groups, distributed: bool = True):
     if cfg.parallel == "tp":
         state = shard_state_tp(state, groups.model, groups.model_size,
                                groups.model_rank)
+    if cfg.parallel == "sp":
+        state = spatial_state(state, groups.model)
     return state
 
 
@@ -191,17 +204,26 @@ def check_layout(cfg, groups, distributed: bool) -> None:
         raise SystemExit(
             f"--parallel {cfg.parallel!r} is not a train-CLI mode (dp|sp|tp);"
             " pipeline parallelism is a library feature —"
-            " parallel/pipeline.py gpipe_apply, not in the port yet"
-            " (ROADMAP A1b)")
-    if cfg.parallel == "sp":
+            " parallel/pipeline.py gpipe_apply")
+    if cfg.parallel == "sp" and (
+            cfg.model != "cycle_gan" or "resnet" not in cfg.net_g
+            or cfg.net_d not in ("basic", "n_layers")
+            or cfg.norm != "instance"):
         raise SystemExit(
-            "--parallel sp (the image height split over 'model', with halo"
-            " exchanges) is not in the port yet: ROADMAP A1b; use --parallel"
-            " dp or tp")
-    if cfg.parallel == "tp" and groups.model is None:
+            "--parallel sp is wired for cycle_gan with a resnet generator, a"
+            " basic or n_layers discriminator and --norm instance (got"
+            f" model={cfg.model!r}, net_g={cfg.net_g!r},"
+            f" net_d={cfg.net_d!r}, norm={cfg.norm!r}); sp for the other"
+            " models is ROADMAP A1c")
+    if cfg.parallel in ("sp", "tp") and groups.model is None:
         raise SystemExit(
             f"--parallel {cfg.parallel} needs a 'model' mesh axis: pass"
             " --mesh_shape D M (axes default to data model)")
+    if cfg.parallel == "sp" and cfg.fine_size % groups.model_size != 0:
+        raise SystemExit(
+            f"--parallel sp: --fine_size {cfg.fine_size} is not divisible by"
+            f" the model axis ({groups.model_size}); every rank holds"
+            " fine_size/M rows of each image")
     if cfg.zero != "off":
         if cfg.zero not in ("opt", "fsdp"):
             raise SystemExit(f"--zero {cfg.zero!r}: expected off|opt|fsdp")

@@ -20,7 +20,11 @@ pool is under-full, where nothing is drawn.
 Under data parallelism a query sees the global batch, as the JAX pool does:
 each rank all-gathers the fakes over ``data``, runs the same query with the
 same generator state, and keeps its own rows, so the pool stays the same on
-every rank.
+every rank. Under ``--parallel sp`` each ``model`` rank holds its rows of
+the images' height: the query gathers over ``data`` only, every ``model``
+rank makes the same draws and keeps its own rows, and ``state_dict`` and
+``load_state_dict`` move whole images (gathered over ``model``, resp.
+cut to this rank's rows), so a checkpoint is the same under every layout.
 """
 
 from __future__ import annotations
@@ -67,11 +71,21 @@ class ImagePool:
         return collectives.local_rows(out)
 
     def state_dict(self) -> Dict[str, object]:
-        return {"images": self.images, "count": self.count,
+        """Whole images (under ``--parallel sp`` every ``model`` rank takes
+        part)."""
+        images = self.images
+        if images is not None:
+            images = collectives.gather_spatial(images)
+        return {"images": images, "count": self.count,
                 "rng": self.generator.get_state()}
 
     def load_state_dict(self, sd: Dict[str, object]) -> None:
-        self.images = (None if sd["images"] is None
-                       else sd["images"].to(self.device, copy=True))
+        from ..parallel.mesh import spatial_rows
+
+        images = sd["images"]
+        if images is not None:
+            images = spatial_rows({"i": images})["i"]
+        self.images = (None if images is None
+                       else images.to(self.device, copy=True))
         self.count = int(sd["count"])
         self.generator.set_state(sd["rng"])

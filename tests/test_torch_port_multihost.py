@@ -91,12 +91,12 @@ def test_two_process_cli_ranks_hold_one_state(cli_runs):
     assert "D_A:" in outs[0] and "D_A:" not in outs[1]
 
 
-def test_two_process_cli_equals_one_process(cli_runs):
-    tmp, one, two, _ = cli_runs
+def _nets_close(tmp, a, b):
+    """The two runs' saved nets by the step test's bounds."""
     cfg = apply_model_defaults(Config(device="cpu", ngf=8, ndf=8,
                                       net_g="resnet_3blocks"))
     nets = create_model(cfg).init_state().nets
-    a, b = _load(tmp / "one"), _load(tmp / "two")
+    a, b = _load(tmp / a), _load(tmp / b)
     flipped = total = 0
     for name, sd in a.items():
         noise = biases_before_norm(nets[name])
@@ -108,7 +108,32 @@ def test_two_process_cli_equals_one_process(cli_runs):
                 flipped += int((d > 1e-5).sum())
                 total += d.numel()
     assert flipped <= 1e-3 * total, (flipped, total)
+
+
+def test_two_process_cli_equals_one_process(cli_runs):
+    tmp, one, two, _ = cli_runs
+    _nets_close(tmp, "one", "two")
     assert float(two[0]) == pytest.approx(float(one[0]), rel=1e-5)
+
+
+def test_sp_cli_equals_one_process(cli_runs):
+    """--mesh_shape 1 2 --parallel sp: each process holds half of every
+    image's rows; the checkpoint holds whole nets and whole pool images,
+    and the visuals are whole."""
+    tmp, one, _, _ = cli_runs
+    sp, outs = _digest_runs(tmp, "sp", ["--mesh_shape", "1", "2",
+                                        "--parallel", "sp"], 2)
+    assert sp[0] == sp[1], sp
+    _nets_close(tmp, "one", "sp")
+    assert float(sp[0]) == pytest.approx(float(one[0]), rel=1e-5)
+    st = torch.load(tmp / "sp" / "experiment_name" / "1_train_state.pth")
+    want = torch.load(tmp / "one" / "experiment_name" / "1_train_state.pth")
+    for k, pool in st["pools"].items():
+        assert pool["images"].shape == want["pools"][k]["images"].shape
+        assert pool["count"] == want["pools"][k]["count"]
+    images = tmp / "sp" / "experiment_name" / "web" / "images"
+    pngs = sorted(images.glob("*.png"))
+    assert pngs and all(Image.open(p).size == (32, 32) for p in pngs)
 
 
 def test_zero_checkpoints_load_without_zero_and_the_reverse(cli_runs):
@@ -133,7 +158,7 @@ def test_zero_checkpoints_load_without_zero_and_the_reverse(cli_runs):
 def test_dp_refuses_what_the_port_lacks(tmp_path):
     from cycle_depth_estimation_tpu_torch.train import main
 
-    for extra, says in ((["--parallel", "sp"], "ROADMAP A1b"),
+    for extra, says in ((["--parallel", "sp"], "needs a 'model' mesh axis"),
                         (["--parallel", "pp"], "not a train-CLI mode"),
                         (["--parallel", "tp"], "needs a 'model' mesh axis"),
                         (["--zero", "opt"], "needs a process group"),
@@ -141,6 +166,34 @@ def test_dp_refuses_what_the_port_lacks(tmp_path):
         with pytest.raises((SystemExit, ValueError), match=says):
             main(["--dataroot", str(tmp_path), "--checkpoints_dir",
                   str(tmp_path), *CLI, *extra])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--model", "pix2pix", "--netG", "unet_128"],
+    ["--netD", "pixel"],
+    ["--norm", "batch"],
+])
+def test_sp_refuses_what_it_has_no_row_split_for(tmp_path, extra):
+    from cycle_depth_estimation_tpu_torch.train import main
+
+    with pytest.raises(SystemExit, match="ROADMAP A1c"):
+        main(["--dataroot", str(tmp_path), "--checkpoints_dir",
+              str(tmp_path), *CLI, "--parallel", "sp", *extra])
+
+
+def test_sp_refuses_a_height_the_model_axis_does_not_divide():
+    from cycle_depth_estimation_tpu_torch.config import parse_args
+    from cycle_depth_estimation_tpu_torch.parallel.collectives import Groups
+    from cycle_depth_estimation_tpu_torch.train import check_layout
+
+    cfg = parse_args(["--dataroot", ".", *CLI, "--parallel", "sp",
+                      "--mesh_shape", "1", "3"], is_train=True)
+    three = Groups(model=object(), model_size=3, spatial=True)
+    with pytest.raises(SystemExit, match="--fine_size 32 is not divisible"
+                       r" by the model axis \(3\)"):
+        check_layout(cfg, three, distributed=True)
+    check_layout(cfg, Groups(model=object(), model_size=2, spatial=True),
+                 distributed=True)
 
 
 P2P = dict(model="pix2pix", net_g="unet_128", fine_size=128, ngf=4, ndf=4,

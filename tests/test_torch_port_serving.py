@@ -188,7 +188,8 @@ def test_port_imports_nothing_of_jax():
                 "utils/metrics.py", "models/s2d_base.py", "models/s2d_alt.py",
                 "models/s2d_df.py", "models/s2d_nd.py",
                 "models/semantic_trans.py", "models/semantic_trans_full.py",
-                "models/ptq.py"):
+                "models/ptq.py", "parallel/spatial.py",
+                "parallel/pipeline.py"):
         assert port / new in files, new
     for path in files:
         for mod in _imported_modules(path):
