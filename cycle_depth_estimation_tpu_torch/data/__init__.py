@@ -40,6 +40,20 @@ def create_dataset(cfg, phase: str = None):
     return _DATASET_REGISTRY[cfg.dataset_mode](cfg, phase=phase or cfg.phase)
 
 
+def image_height(cfg) -> int:
+    """The height of the images the loader of ``cfg`` yields: its
+    dataset's ``size`` where it has one (``synthia`` makes 192 of the
+    default ``fine_size`` 256), else ``fine_size``."""
+    from . import datasets, domain_datasets  # noqa: F401  (register them)
+
+    cls = _DATASET_REGISTRY.get(cfg.dataset_mode)
+    if not isinstance(getattr(cls, "size", None), property):
+        return cfg.fine_size
+    shell = cls.__new__(cls)  # no files read: size reads cfg alone
+    shell.cfg = cfg
+    return shell.size[1]
+
+
 def create_dataloader(cfg, phase: str = None, shuffle: bool = None):
     """The reference ``CreateDataLoader(opt)``: shuffled unless
     ``serial_batches`` (or ``shuffle`` says otherwise); with batch_size > 1

@@ -19,6 +19,11 @@ parameters, statistics and dropout key, so it reuses the forward of step 1
 here; its statistics from that pass are dropped there, as they are never
 made here. Losses are fp32 means; ``--dtype bfloat16`` runs every conv in
 bf16 with fp32 parameters and Adam state (``ops.layers.set_compute_dtype``).
+Under ``--parallel sp`` (``parallel/spatial.py``) G and D run on this
+rank's rows of the images (the AB pairs are concatenated on channels, row
+for row), the GAN and L1 means are over the whole planes, the BatchNorm
+statistics over ``data`` × ``model``, and ``eval_step`` gathers its
+visuals' height.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from . import register_model
 from ..config import Config
 from ..ops.layers import set_compute_dtype
+from ..parallel.collectives import gather_spatial
 from ..utils.image_pool import ImagePool
 from .base_model import BaseModel, ModelState, make_optimizer
 from .networks import define_D, define_G, gan_loss, l1_loss
@@ -133,4 +139,5 @@ class Pix2PixModel(BaseModel):
                 G_L1=l1_loss(fake_B, real_B) * self.cfg.lambda_l1,
                 D_real=gan_loss(pred_real, True, self.gan_mode),
                 D_fake=gan_loss(pred_fake, False, self.gan_mode))
-        return metrics, dict(real_A=real_A, fake_B=fake_B, real_B=real_B)
+        visuals = dict(real_A=real_A, fake_B=fake_B, real_B=real_B)
+        return metrics, {k: gather_spatial(v) for k, v in visuals.items()}

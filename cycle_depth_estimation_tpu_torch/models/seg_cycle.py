@@ -24,7 +24,12 @@ One train step is the JAX package's, in this order:
    the G update), D on real then on fake, one Adam step on D.
 
 Losses are fp32 means; ``--dtype bfloat16`` runs every conv in bf16 with
-fp32 parameters and Adam state.
+fp32 parameters and Adam state. Under ``--parallel sp``
+(``parallel/spatial.py``) the eight nets run on this rank's rows of the
+images and label maps; the GAN, L1 and cross-entropy means are over the
+whole planes (``spatial_mean``, ``global_mean``), the encoders' and
+decoders' BatchNorm statistics over ``data`` × ``model``, the pools hold
+rows, and ``eval_step`` gathers its visuals' height.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 from . import register_model
 from ..config import Config
 from ..ops.layers import set_compute_dtype
+from ..parallel.collectives import gather_spatial
 from ..utils.image_pool import ImagePool
 from .base_model import BaseModel, ModelState, make_optimizer
 from .encoder_decoder import define_decoder, define_encoder
@@ -207,4 +213,5 @@ class SegCycleModel(BaseModel):
                        real_B=real_B, fake_A=aux["fake_A"], rec_B=aux["rec_B"],
                        lab_B=lab_B, segBreal=aux["segBreal"].argmax(1),
                        segBfake=aux["segBfake"].argmax(1), idt_B=aux["idt_B"])
+        visuals = {k: gather_spatial(v) for k, v in visuals.items()}
         return self.metrics_dict(D_A=loss_D_A, D_B=loss_D_B, **losses), visuals

@@ -13,7 +13,11 @@ One train step is the JAX package's:
    their sum minimized by one Adam step (lr 1e-3, β (0.95, 0.999), eps
    1e-8) on the task net only; the LR is never stepped.
 
-Both losses and both valid-pixel accuracies are reported. Only the task net
+Both losses and both valid-pixel accuracies are reported. Under
+``--parallel sp`` (``parallel/spatial.py``) the translator and the task
+net run on this rank's rows of the images and label maps, the masked
+means are over the whole planes (``global_mean``) and ``eval_step``
+gathers its visuals' height. Only the task net
 (``img2task``) is checkpointed, as in the JAX package: the translator is a
 seeded random init unless ``load_reference_s2t`` loads a reference ``.pth``.
 """
@@ -26,6 +30,7 @@ import torch
 
 from . import register_model
 from ..ops.layers import set_compute_dtype
+from ..parallel.collectives import gather_spatial
 from ..utils.weights import load_pth
 from .base_model import BaseModel, ModelState
 from .networks import define_G
@@ -112,4 +117,4 @@ class SegModel(BaseModel):
                        lab_s=aux["lab_s"], img_s2t=aux["img_s2t"],
                        lab_t_pre=aux["lab_t_pre"].argmax(1),
                        lab_t=aux["lab_t"])
-        return metrics, visuals
+        return metrics, {k: gather_spatial(v) for k, v in visuals.items()}

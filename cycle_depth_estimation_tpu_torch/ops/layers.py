@@ -169,19 +169,29 @@ class BatchNorm(nn.BatchNorm2d):
     mode uses the global batch's statistics, as the JAX step over a mesh
     does: the mean, then the biased variance about it, each from
     per-channel sums all-reduced over ``data`` (differentiably), with n the
-    global count, and the flax rule on the running statistics.
+    global count, and the flax rule on the running statistics. Under
+    ``--parallel sp`` the sums are all-reduced over ``model`` as well, and
+    n counts the whole plane: the caller passes its height
+    (``plane_rows``; ``parallel/spatial.py`` does), since a rank's rows of
+    a plane need not be an equal share.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
-    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+    def _global_forward(self, x: torch.Tensor, groups, n: int
+                        ) -> torch.Tensor:
         shape = (1, -1, 1, 1)
         xf = x.float()
-        n = x.numel() // x.shape[1] * collectives.data_size()
-        mean = collectives.all_reduce(xf.sum((0, 2, 3)), group) / n
+
+        def total(t):
+            for group in groups:
+                t = collectives.all_reduce(t, group)
+            return t
+
+        mean = total(xf.sum((0, 2, 3))) / n
         xc = xf - mean.view(shape)
-        var = collectives.all_reduce((xc * xc).sum((0, 2, 3)), group) / n
+        var = total((xc * xc).sum((0, 2, 3))) / n
         y = (xc * torch.rsqrt(var + self.eps).view(shape)
              * self.weight.view(shape) + self.bias.view(shape))
         with torch.no_grad():
@@ -191,11 +201,25 @@ class BatchNorm(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return y.to(x.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                plane_rows: Optional[int] = None) -> torch.Tensor:
+        """``plane_rows``: under ``--parallel sp``, the height of the plane
+        whose rows ``x`` holds."""
         if not self.training:
             return super().forward(x)
-        if collectives.data_size() > 1:
-            return self._global_forward(x, collectives.active().data)
+        g = collectives.active()
+        groups, rows = [], x.shape[2]
+        if g.data_size > 1:
+            groups.append(g.data)
+        if g.spatial and g.model_size > 1:
+            if plane_rows is None:
+                raise ValueError("BatchNorm under --parallel sp needs the "
+                                 "height of the plane its rows belong to")
+            groups.append(g.model)
+            rows = plane_rows
+        if groups:
+            n = x.shape[0] * g.data_size * rows * x.shape[3]
+            return self._global_forward(x, groups, n)
         old = self.running_var.clone()
         y = super().forward(x)
         n = x.numel() // x.shape[1]

@@ -14,7 +14,8 @@ step on its rows, and these helpers rebuild that equality:
 - ``all_reduce`` and ``all_gather``, differentiable; Megatron's *f*
   (``copy_to_model``: identity forward, all-reduce backward) and *g*
   (``reduce_from_model``: all-reduce forward, identity backward);
-- ``global_mean(num, den)``: a masked mean over the global batch;
+- ``global_mean(num, den)``: a masked mean over the global batch
+  (and under ``--parallel sp`` the whole planes);
 - ``global_rows`` / ``local_rows``: draw at the global batch's shape, keep
   this rank's rows; ``mean_over_data``: the metrics a step returns.
 
@@ -223,10 +224,17 @@ class _ReduceFromModel(torch.autograd.Function):
 def global_mean(num: torch.Tensor, den: torch.Tensor,
                 min_den: float = 0.0) -> torch.Tensor:
     """Σ num / max(Σ den, ``min_den``) over the ``data`` group, for a mean
-    over a mask whose count differs by rank. Every rank gets the global
-    value; with the gradient average of ``sync_grads`` the gradient is the
-    global mean's."""
-    group = _ACTIVE.data
+    over a mask whose count differs by rank, and under ``--parallel sp``
+    over ``model`` too (each rank holds some rows of the planes; the
+    sum's gradient passed through there, as in ``spatial_mean``). Every
+    rank gets the global value; with the gradient average of
+    ``sync_grads`` the gradient is the global mean's."""
+    g = _ACTIVE
+    if g.spatial and g.model is not None and g.model_size > 1:
+        both = reduce_from_model(torch.stack([num, den.detach().to(
+            num.dtype)]), g.model)
+        num, den = both[0], both[1]
+    group = g.data
     if group is None:
         return num / den.clamp_min(min_den)
     den = all_reduce_(den.detach().clone(), group)
@@ -314,13 +322,16 @@ def spatial_mean(t: torch.Tensor) -> torch.Tensor:
     return both[0] / both[1]
 
 
-def gather_spatial(t: torch.Tensor, dim: int = 2) -> torch.Tensor:
+def gather_spatial(t: torch.Tensor, dim: Optional[int] = None
+                   ) -> torch.Tensor:
     """Under ``--parallel sp``, the whole height of this rank's rows ``t``
-    (gathered over ``model``, no gradient); else ``t``."""
+    (gathered over ``model``, no gradient; the height is the dimension
+    before the last unless ``dim`` says otherwise: NCHW images, NHW label
+    maps); else ``t``."""
     g = _ACTIVE
     if not g.spatial or g.model is None or g.model_size == 1:
         return t
-    return all_gather_uneven(t, g.model, dim)
+    return all_gather_uneven(t, g.model, t.dim() - 2 if dim is None else dim)
 
 
 def sync_grads(params: Iterable[torch.Tensor]) -> None:

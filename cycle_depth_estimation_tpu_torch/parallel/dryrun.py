@@ -21,7 +21,13 @@ stage printing a stamped line:
 6. dp×pp (N ≥ 4): the same on a (N/4, 4) ``('data', 'stage')`` mesh;
 7. the CycleGAN step (ngf 4, 32²) under dp×sp on a (N/2, 2) mesh
    against one process: the synced generator gradients within 1e-5 of
-   the largest, the losses and the pooled parameter checks.
+   the largest, the losses and the pooled parameter checks;
+8. the pix2pix step (unet_128 at 128², BatchNorm, dropout; its innermost
+   plane has one row, so one rank of a pair holds none of it) and the
+   SegCycle step (96², the cross-entropies over the whole label maps)
+   under dp×sp on a (N/2, 2) mesh against one process: the losses within
+   1e-4, the pooled parameter checks, and pix2pix's first gradients
+   within 1e-5 of the largest.
 
 ``spawn`` starts the ranks (a Python process a rank, each in a session of
 its own, a free localhost port, one timeout for the world; every process
@@ -216,7 +222,8 @@ def model_step(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor],
                layout: Optional[Dict[str, Any]] = None,
                init_sd: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                adam_eps: Optional[float] = None, steps: int = 1,
-               g_grads: bool = False) -> Dict[str, Any]:
+               g_grads: bool = False, first_grads: bool = False
+               ) -> Dict[str, Any]:
     """One rank's (or one process's) train steps on the global ``batch``:
     the model of ``cfg_kw`` from its seed (or ``init_sd``), Adam's eps set
     to ``adam_eps`` where given, laid out by ``layout`` (``mesh_shape``,
@@ -227,10 +234,12 @@ def model_step(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor],
     bytes this rank holds after the steps, the split InstanceNorm entries'
     launches of each step (``--parallel sp``) and the steps' seconds; with
     ``g_grads`` (CycleGAN) the generator gradient of the first step after
-    the sync."""
+    the sync; with ``first_grads`` (any model) the synced gradients that
+    the first optimizer step of the first train step reads."""
     from ..config import Config, apply_model_defaults
     from ..device import set_precision
     from ..models import create_model
+    from ..models.networks import biases_before_norm
     from ..ops.kernels import instance_norm as kin
     from ..ops.kernels.instance_norm import (instance_norm,
                                              instance_norm_backward)
@@ -248,6 +257,7 @@ def model_step(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor],
              if k in ("mesh_shape", "mesh_axes", "parallel", "zero")}}
     cfg = apply_model_defaults(Config(**kw), set(kw))
     set_precision(cfg.tpu_precision)
+    torch.manual_seed(cfg.seed + 1)  # the train CLI's dropout seed
     groups = layout_groups(layout)
     prev = collectives.activate(groups)
     try:
@@ -270,6 +280,13 @@ def model_step(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor],
                "memory_report": report}
         if g_grads:
             out["grads"] = _g_phase_grads(model, state, local)
+        hooks = []
+        if first_grads:
+            hooks = _record_first_step(state, out.setdefault(
+                "first_grads", {}))
+            out["before_norm"] = sorted(
+                f"{n}.{k}" for n, net in state.nets.items()
+                for k in biases_before_norm(net))
         launches, split = [], []
         split_fns = (kin.in_stats, kin.in_apply, kin.in_bwd_stats,
                      kin.in_bwd_apply)
@@ -285,6 +302,8 @@ def model_step(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor],
         if device == "cuda":
             torch.cuda.synchronize()
         out["seconds"] = time.perf_counter() - t0
+        for h in hooks:
+            h.remove()
         out["split_launches"] = split
         out["resident_bytes"] = resident_bytes(state)
         out["allocated_bytes"] = (torch.cuda.memory_allocated()
@@ -300,10 +319,34 @@ def model_step(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor],
         collectives.activate(prev)
 
 
+def _record_first_step(state, record: Dict[str, torch.Tensor]):
+    """Fill ``record`` with the gradients of the first optimizer step
+    that any of ``state``'s optimizers takes (synced: the step reads
+    them), by ``net.param`` name; returns the hooks' handles."""
+    names = {id(p): f"{n}.{k}" for n, net in state.nets.items()
+             for k, p in net.named_parameters()}
+
+    def hook(opt, args, kwargs):
+        if record:
+            return
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    record[names[id(p)]] = p.grad.detach().cpu().clone()
+
+    return [opt.register_step_pre_hook(hook)
+            for opt in state.optimizers.values()]
+
+
 def run_cases(cases: Dict[str, Sequence]) -> Dict[str, Any]:
     """``fn(*args)`` for each case ``(fn, args)`` of ``cases``, in order
-    (one world runs them all)."""
-    return {k: fn(*args) for k, (fn, args) in cases.items()}
+    (one world runs them all); each case's seconds printed."""
+    out = {}
+    for k, (fn, args) in cases.items():
+        t = time.perf_counter()
+        out[k] = fn(*args)
+        print(f"[case] {k}: {time.perf_counter() - t:.1f} s", flush=True)
+    return out
 
 
 # ---- comparisons -------------------------------------------------------------
@@ -637,10 +680,64 @@ def s2d_batch_of(n: int, h: int, w: int, seed: int = 11):
             "depth_l_s": torch.randn(n, 4, h, w, generator=g).sign()}
 
 
+def domain_batch_of(n: int, h: int, w: int, seed: int = 3):
+    """A seeded ``synthia`` batch: images in [-1, 1], 22-class source
+    and 28-class target label maps, each with a patch of 255 (ignored)."""
+    g = torch.Generator().manual_seed(seed)
+    out = {k: torch.rand(n, 3, h, w, generator=g) * 2 - 1
+           for k in ("img_source", "img_target")}
+    out["lab_source"] = torch.randint(0, 22, (n, h, w), generator=g)
+    out["lab_target"] = torch.randint(0, 28, (n, h, w), generator=g)
+    out["lab_source"][0, :h // 8, :w // 8] = 255
+    out["lab_target"][-1, -h // 8:] = 255
+    return out
+
+
+def sp_steps_apart(one: Dict[str, Any], ranks: List[Dict[str, Any]],
+                   tag: str, grads: bool = True) -> Dict[str, float]:
+    """``model_step`` results with ``first_grads`` of ranks against one
+    process: raises unless the first optimizer step's gradients are within
+    1e-5 of the largest (where ``grads``; but for the conv biases that a
+    norm follows, whose gradient is zero up to rounding), every loss
+    within 1e-4 (relative, over at least 1e-2) and every net by the pooled
+    checks at 2e-4; returns the worst gradient and loss figures."""
+    want = {k: g for k, g in one["first_grads"].items()
+            if k not in one["before_norm"]}
+    err_g = max(grads_apart(r["first_grads"], want)[0]
+                for r in ranks) if grads else 0.0
+    loss = max(abs(r["metrics"][k] - v) / max(abs(v), 1e-2) for r in ranks
+               for k, v in one["metrics"].items())
+    if err_g > 1e-5 or loss > 1e-4:
+        raise AssertionError(f"{tag}: gradients {err_g:.2e} of the largest, "
+                             f"losses {loss:.2e} apart")
+    for name, sd in one["params"].items():
+        for r in ranks:
+            pooled_params_close(r["params"][name], sd, 2e-4,
+                                f"{tag} {name} rank {r['rank']}")
+    return {"grads": err_g, "losses": loss}
+
+
+SP_PIX2PIX = dict(model="pix2pix", net_g="unet_128", fine_size=128, ngf=4,
+                  ndf=4)
+SP_SEG_CYCLE = dict(model="seg_cycle", net_g="resnet_3blocks", fine_size=96,
+                    ngf=4, ndf=4, pool_size=2)
+
+
 def dryrun_multichip(n: int = 2, timeout: float = 600.0) -> Dict[str, Any]:
     """The stages on ``n`` spawned CPU ranks (4–6 need n ≥ 4 and a
-    multiple of 4, 7 an even n); raises on a miss and returns each
-    stage's figures."""
+    multiple of 4, 7 and 8 an even n); raises on a miss and returns each
+    stage's figures. The one-process runs take one thread, as each rank
+    does: the CPU's multi-threaded reductions move a BatchNorm step's
+    gradients in their last bits, past 1e-5 of the largest at SegCycle's."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _dryrun_stages(n, timeout)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _dryrun_stages(n: int, timeout: float) -> Dict[str, Any]:
     out = {}
     gen = torch.Generator().manual_seed(0)
     cyc = dict(model="cycle_gan", ngf=8, ndf=8, net_g="resnet_3blocks",
@@ -759,6 +856,29 @@ def dryrun_multichip(n: int = 2, timeout: float = 600.0) -> Dict[str, Any]:
         stamp(f"stage 7: CycleGAN dp×sp step on mesh {layout['mesh_shape']}"
               f" == one process (gradients {err_g:.2e} of the largest, "
               f"losses {loss:.2e})")
+
+        b = n // 2 * 2
+        for name, cfg, batch in (
+                ("pix2pix", {**SP_PIX2PIX, "batch_size": b},
+                 {k: torch.rand(b, 3, 128, 128, generator=gen) * 2 - 1
+                  for k in ("A", "B")}),
+                ("seg_cycle", {**SP_SEG_CYCLE, "batch_size": b},
+                 domain_batch_of(b, 96, 96))):
+            one = model_step(cfg, batch, {}, None, 1e-2, first_grads=True)
+            ranks = spawn(model_step, n, (cfg, batch, layout, None, 1e-2, 1,
+                                          False, True), timeout=timeout)
+            # SegCycle's first gradients move by 6.8e-5 of the largest at
+            # batch 4 under dp alone (--mesh_shape 4 1: BatchNorm's global
+            # sums against torch's fused op), so its losses and parameters
+            # hold it here; the CPU tests hold its sp gradients at batch 2
+            out[f"{name}_dp_sp"] = sp_steps_apart(
+                one, ranks, f"{name} dp×sp", grads=name == "pix2pix")
+            fig = out[f"{name}_dp_sp"]
+            stamp(f"stage 8: {name} dp×sp step on mesh "
+                  f"{layout['mesh_shape']} == one process ("
+                  + (f"gradients {fig['grads']:.2e} of the largest, "
+                     if name == "pix2pix" else "")
+                  + f"losses {fig['losses']:.2e}, parameters pooled)")
     return out
 
 

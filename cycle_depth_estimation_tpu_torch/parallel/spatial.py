@@ -2,40 +2,62 @@
 (the JAX package's ``parallel/spatial.py``, ``--parallel sp``).
 
 The JAX package shards H of an NHWC tensor over ``model`` and lets XLA's
-SPMD partitioner insert the conv halo exchanges and the InstanceNorm's
-whole-plane reductions. One process is one rank here, so both are written
-out:
+SPMD partitioner insert the halo exchanges and the norms' whole-plane
+reductions. One process is one rank here, so both are written out:
 
 - the split: rank m of M holds rows ``[m·H//M, (m+1)·H//M)`` of every
   plane (``mesh.row_range``); a net's input must split evenly (H divides by
-  M), its layers' planes may not (the PatchGAN's 31- and 30-row planes);
-- a conv of kernel k, stride s and padding p owns the output rows of that
-  rule on its own plane, ``[o0, o1)``, and needs the input rows
-  ``[o0·s − p, (o1−1)·s − p + k)``, clipped to the plane: ``halo`` fetches
-  those it lacks from the ranks that own them (one message a pair, all at
-  once, so a shard thinner than the halo takes rows from several ranks),
-  and its backward sends each fetched row's gradient back to be added to
-  the owner's. The padding (reflect or zeros) is applied at the plane's
-  top and bottom only, by the ranks that hold them; W stays whole on
-  every rank and is padded as before;
+  M), its layers' planes may not (the PatchGAN's 31- and 30-row planes),
+  and a plane may have fewer rows than ranks (unet_256's innermost plane
+  has one row): a rank that holds none of a layer's output rows still
+  runs the layer on zero rows padded to one window and keeps none of it,
+  so its backward reaches every exchange and all-reduce behind it;
+- a windowed op of kernel k, stride s and padding p (a conv of dilation
+  d spans k = d·(k − 1) + 1 rows; the 2×2 pools are k 2, s 2, p 0) owns
+  the output rows of that rule on its own plane, ``[o0, o1)``, and needs
+  the input rows ``[o0·s − p, (o1−1)·s − p + k)``, clipped to the
+  plane: ``halo`` fetches those it lacks from the ranks that own them
+  (one message a pair, all at once, so a shard thinner than the halo
+  takes rows from several ranks), and its backward sends each fetched row's
+  gradient back to be added to the owner's. The padding (reflect or
+  zeros) is applied at the plane's top and bottom only, by the ranks that
+  hold them; W stays whole on every rank and is padded as before;
 - a transposed conv owns its output rows by the same rule and fetches the
-  input rows that reach them;
+  input rows that reach them; a nearest ×2 upsample reads input row
+  ⌊o/2⌋ for output row o;
 - ``InstanceNorm`` runs the kernels' split entries with the ``model``
   group and the whole plane's count (``ops.kernels.instance_norm``);
-- elementwise layers run on the rows as they are.
+  ``BatchNorm`` in train mode takes its statistics over ``data`` ×
+  ``model`` with the global count (``ops.layers.BatchNorm``);
+- ``Dropout`` (and T2Net's ``GaussianNoise``) draws the mask of the
+  global batch's whole planes on every rank, in the one process's order
+  of draws, and keeps this rank's block: one i.i.d. mask over the planes,
+  the one process's;
+- elementwise layers run on the rows as they are, and so do channel
+  concatenations of parts that hold the same rows of one plane (the
+  U-Net's skips, the Inception branches, the T2Net heads' inputs);
+- each row op is one autograd node on every rank (``_local``), so the
+  ranks' backwards meet their exchanges and all-reduces in one order.
 
-``spatial(net, group)`` makes a ``ResnetGenerator`` (ConvTranspose ups)
-or an ``NLayerDiscriminator`` run so, in place: the net keeps its modules,
-names and parameters (``state_dict()`` and the importers do not change),
-and its forward walks its layers with the global height beside the local
-rows. Each rank's parameter gradients are then its rows' part: the train
-step sums them over ``model`` (``collectives.sync_replicas``).
+``spatial(net, group)`` makes a net run so, in place: the CycleGAN and
+pix2pix nets (``ResnetGenerator`` in both up modes, ``UnetGenerator``,
+``NLayerDiscriminator``, ``PixelDiscriminator``), T2Net's task net
+(``UNetGenerator``) and SegCycle's ``UNetEncoder``/``UNetDecoder``. A net
+keeps its modules, names and parameters (``state_dict()`` and the
+importers do not change); its forward walks its layers with each plane's
+global height beside the local rows: ``_run`` walks a ``Sequential``,
+``_layer`` one module (the blocks of these nets among them), and the nets
+whose forwards are Python code over several features (the T2Net trunk
+and heads, the encoder and decoder) have row forwards of their own here
+that mirror theirs. Each rank's parameter gradients are then its rows'
+part: the train step sums them over ``model``
+(``collectives.sync_replicas``).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -140,6 +162,8 @@ class _Halo(torch.autograd.Function):
             s, e = _overlap(own[q], need[r])
             if e > s:
                 parts.append(x[:, :, s - a:e - a] if q == r else got[q])
+        if not parts:  # this rank's layer has no output rows
+            return x.new_zeros(x.shape[:2] + (0,) + x.shape[3:])
         return torch.cat(parts, 2) if len(parts) > 1 else parts[0].clone()
 
     @staticmethod
@@ -174,16 +198,72 @@ def halo(x: torch.Tensor, h: int, need: Sequence[Rows], group
 
 
 # ---- the ops -----------------------------------------------------------------
-def _check_rows(what: str, h_out: int, m: int) -> None:
-    if h_out < m:
-        raise ValueError(f"--parallel sp: {what} gives a plane of {h_out} "
-                         f"rows, fewer than the {m} ranks of 'model'; use "
-                         "larger images or a smaller model axis")
+def _windows(h: int, h_out: int, m: int, k: int, s: int, p: int):
+    """For each rank q, the input rows ``[o0·s − p, (o1−1)·s − p + k)``
+    that its output rows ``row_range(h_out, m, q)`` read (None where it
+    holds none), and the same clipped to the plane's ``h`` rows."""
+    want = []
+    for q in range(m):
+        o0, o1 = row_range(h_out, m, q)
+        want.append((o0 * s - p, (o1 - 1) * s - p + k) if o1 > o0 else None)
+    need = [(0, 0) if w is None else (max(w[0], 0), min(w[1], h))
+            for w in want]
+    return want, need
 
 
-def _conv_weights(conv: nn.Module, x: torch.Tensor):
-    dt = getattr(conv, "compute_dtype", None)
-    w, b = conv.weight, conv.bias
+class _Local(torch.autograd.Function):
+    """``fn(*inputs)`` as one autograd node: the local work of a row op
+    (padding, the conv or pool, the cut to this rank's rows), whatever
+    its path on this rank, recorded inside and differentiated there. The
+    local graph keeps what it saves itself, outside any checkpoint's
+    saved-tensor hooks (``--remat``: the checkpoint's recompute runs the
+    op again, and its exchanges; only this node's own graph is not
+    recomputed)."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                _keep, _keep):
+            ins = [t.detach().requires_grad_() if torch.is_tensor(t)
+                   and t.requires_grad else t for t in inputs]
+            out = fn(*ins)
+        ctx.ins, ctx.out = ins, out
+        return out.detach().contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        ins, out = ctx.ins, ctx.out
+        ctx.ins = ctx.out = None
+        want = [t for t in ins if torch.is_tensor(t) and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, want, g, allow_unused=True)
+                     if want and out.requires_grad else [None] * len(want))
+        return (None, *(next(grads) if torch.is_tensor(t) and t.requires_grad
+                        else None for t in ins))
+
+
+def _keep(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _local(fn: Callable, *inputs) -> torch.Tensor:
+    """``fn(*inputs)``, one autograd node where a gradient is wanted.
+
+    Ranks take different paths through a row op (a padding only at the
+    plane's edges, zero rows where a rank holds none), and autograd would
+    record different nodes for them; its engine runs the independent
+    branches of a graph (the six generator passes of a CycleGAN step, a
+    net's two heads) in the order of the nodes' creation, so the ranks'
+    backward would meet their exchanges and all-reduces in different
+    orders, and gloo would pair messages of equal size from different
+    exchanges. With each op one node, every rank's graph is the same."""
+    if not torch.is_grad_enabled() or not any(
+            torch.is_tensor(t) and t.requires_grad for t in inputs):
+        return fn(*inputs)
+    return _Local.apply(fn, *inputs)
+
+
+def _cast(mod: nn.Module, x, w, b):
+    dt = getattr(mod, "compute_dtype", None)
     if dt is None:
         return x, w, b
     return x.to(dt), w.to(dt), None if b is None else b.to(dt)
@@ -195,25 +275,26 @@ def conv2d_rows(x: torch.Tensor, conv: nn.Conv2d, h: int, group,
     ``pad`` (``'reflect'`` or ``'zeros'``; the conv itself unpadded, or
     padded by ``pad`` with zeros); returns this rank's output rows and the
     output's height."""
-    k, s = conv.kernel_size[0], conv.stride[0]
+    k = conv.dilation[0] * (conv.kernel_size[0] - 1) + 1
+    s = conv.stride[0]
     m, r = dist.get_world_size(group), dist.get_rank(group)
     h_out = (h + 2 * pad - k) // s + 1
-    _check_rows(f"a {k}×{k} stride-{s} conv on {h} rows", h_out, m)
-
-    def rows(q):
-        o0, o1 = row_range(h_out, m, q)
-        return o0 * s - pad, (o1 - 1) * s - pad + k
-
-    want = [rows(q) for q in range(m)]
-    need = [(max(lo, 0), min(hi, h)) for lo, hi in want]
+    want, need = _windows(h, h_out, m, k, s, pad)
     xb = halo(x, h, need, group)
-    lo, hi = want[r]
     pw = pad if mode == "reflect" else conv.padding[1]
-    xb = F.pad(xb, (pw, pw, max(0, -lo), max(0, hi - h)),
-               mode="reflect" if mode == "reflect" else "constant")
-    xb, w, b = _conv_weights(conv, xb)
-    return F.conv2d(xb, w, b, conv.stride, 0, conv.dilation,
-                    conv.groups), h_out
+    if want[r] is None:  # no output row here: k zero rows, cut to none
+        pads, how = (pw, pw, 0, k), "constant"
+    else:
+        lo, hi = want[r]
+        pads = (pw, pw, max(0, -lo), max(0, hi - h))
+        how = "reflect" if mode == "reflect" else "constant"
+
+    def op(t, w, b):
+        t, w, b = _cast(conv, F.pad(t, pads, mode=how), w, b)
+        y = F.conv2d(t, w, b, conv.stride, 0, conv.dilation, conv.groups)
+        return y if want[r] else y[:, :, :0]
+
+    return _local(op, xb, conv.weight, conv.bias), h_out
 
 
 def conv_transpose2d_rows(x: torch.Tensor, conv: nn.ConvTranspose2d,
@@ -222,41 +303,193 @@ def conv_transpose2d_rows(x: torch.Tensor, conv: nn.ConvTranspose2d,
     over ``group``: this rank's output rows by the rule, from the input
     rows that reach them; returns them and the output's height."""
     k, s = conv.kernel_size[0], conv.stride[0]
-    p, op = conv.padding[0], conv.output_padding[0]
+    p, op_pad = conv.padding[0], conv.output_padding[0]
     m, r = dist.get_world_size(group), dist.get_rank(group)
-    h_out = (h - 1) * s - 2 * p + k + op
-    _check_rows(f"a {k}×{k} stride-{s} transposed conv on {h} rows",
-                h_out, m)
+    h_out = (h - 1) * s - 2 * p + k + op_pad
 
     def rows(q):  # input i reaches outputs i·s − p … i·s − p + k − 1
         o0, o1 = row_range(h_out, m, q)
+        if o1 == o0:
+            return 0, 0
         return (max(0, -((k - 1 - o0 - p) // s)),
                 min(h, (o1 - 1 + p) // s + 1))
 
     need = [rows(q) for q in range(m)]
     xb = halo(x, h, need, group)
     o0, o1 = row_range(h_out, m, r)
-    i0 = need[r][0]
-    xb, w, b = _conv_weights(conv, xb)
-    y = F.conv_transpose2d(xb, w, None, conv.stride,
-                           (0, conv.padding[1]),
-                           (0, conv.output_padding[1]), conv.groups,
-                           conv.dilation)
-    u0, u1 = o0 - i0 * s + p, o1 - i0 * s + p
-    if u1 > y.shape[2]:  # rows the output padding adds below every input
-        y = F.pad(y, (0, 0, 0, u1 - y.shape[2]))
-    y = y[:, :, u0:u1]
-    return (y if b is None else y + b.view(1, -1, 1, 1)), h_out
+    u0 = o0 - need[r][0] * s + p
+
+    def op(t, w, b):
+        if o1 == o0:  # no output row here: one zero row, cut to none
+            t = F.pad(t, (0, 0, 0, 1))
+        t, w, b = _cast(conv, t, w, b)
+        y = F.conv_transpose2d(t, w, None, conv.stride,
+                               (0, conv.padding[1]),
+                               (0, conv.output_padding[1]), conv.groups,
+                               conv.dilation)
+        if o1 == o0:
+            return y[:, :, :0]
+        # the rows the output padding adds below every input
+        y = F.pad(y, (0, 0, 0, max(0, u0 + o1 - o0 - y.shape[2])))
+        y = y[:, :, u0:u0 + o1 - o0]
+        return y if b is None else y + b.view(1, -1, 1, 1)
+
+    return _local(op, xb, conv.weight, conv.bias), h_out
+
+
+def pool2d_rows(x: torch.Tensor, h: int, group, pool=F.avg_pool2d,
+                k: int = 2, s: int = 2) -> Tuple[torch.Tensor, int]:
+    """``pool(x, k, s)`` (``F.avg_pool2d`` or ``F.max_pool2d``, unpadded)
+    over a plane of height ``h`` split over ``group``: a window that
+    straddles two ranks takes its rows from both."""
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+    h_out = (h - k) // s + 1
+    want, need = _windows(h, h_out, m, k, s, 0)
+    xb = halo(x, h, need, group)
+
+    def op(t):
+        if want[r] is None:  # no output row here: k zero rows, cut to none
+            return pool(F.pad(t, (0, 0, 0, k)), k, s)[:, :, :0]
+        return pool(t, k, s)
+
+    return _local(op, xb), h_out
+
+
+def upsample2_rows(x: torch.Tensor, h: int, group
+                   ) -> Tuple[torch.Tensor, int]:
+    """Nearest ×2 over a plane of height ``h`` split over ``group``:
+    output row o reads input row ⌊o/2⌋, fetched where another rank owns
+    it (the plane's rows need not split evenly)."""
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+
+    def rows(q):
+        o0, o1 = row_range(2 * h, m, q)
+        return (o0 // 2, (o1 - 1) // 2 + 1) if o1 > o0 else (0, 0)
+
+    need = [rows(q) for q in range(m)]
+    xb = halo(x, h, need, group)
+    o0, o1 = row_range(2 * h, m, r)
+    u0 = o0 - 2 * need[r][0]
+
+    def op(t):
+        if o1 == o0:  # no output row here: one zero row, cut to none
+            t = F.pad(t, (0, 0, 0, 1))
+        return F.interpolate(t, scale_factor=2, mode="nearest")[
+            :, :, u0:u0 + o1 - o0]
+
+    return _local(op, xb), 2 * h
+
+
+def plane_draw_rows(x: torch.Tensor, h: int, group, draw: Callable
+                    ) -> torch.Tensor:
+    """This rank's block of ``draw(shape)``, drawn at the global batch's
+    whole planes (``x``'s shape with the ``data`` group's rows and ``h``
+    rows a plane) on every rank alike: the one process's draw from the
+    same generator state."""
+    from .collectives import active
+    from .mesh import rows_of
+
+    g = active()
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+    a, b = row_range(h, m, r)
+    n = x.shape[0] * g.data_size
+    full = draw((n,) + x.shape[1:2] + (h,) + x.shape[3:])
+    return full[rows_of(n, g.data_size, g.data_rank), :, a:b]
+
+
+def _same_plane(*parts) -> int:
+    """The common height of ``parts`` ((rows, h) pairs) that one channel
+    concatenation joins."""
+    hs = {h for _, h in parts}
+    if len(hs) != 1:
+        raise ValueError(f"--parallel sp: a concatenation of planes of "
+                         f"{sorted(hs)} rows")
+    return hs.pop()
+
+
+def _cat(*parts) -> Tuple[torch.Tensor, int]:
+    h = _same_plane(*parts)
+    return torch.cat([t for t, _ in parts], 1), h
+
+
+def _is_2x2(mod) -> bool:
+    def two(v):
+        return v in (2, (2, 2))
+
+    return (two(mod.kernel_size) and two(mod.stride or mod.kernel_size)
+            and mod.padding in (0, (0, 0)) and not mod.ceil_mode
+            and getattr(mod, "dilation", 1) in (1, (1, 1)))
+
+
+def _layer(mod: nn.Module, x: torch.Tensor, h: int, group
+           ) -> Tuple[torch.Tensor, int]:
+    """One module of these nets on this rank's rows ``x`` of a plane of
+    height ``h``; returns the rows out and their plane's height."""
+    from ..models.networks import ResnetBlock, UnetSkipConnectionBlock
+    from ..models.seg_network import (DecoderUpBlock, EncoderBlock,
+                                      GaussianNoise, InceptionBlock,
+                                      OutputBlock)
+    from ..ops.kernels.instance_norm import instance_norm
+    from ..ops.layers import BatchNorm, InstanceNorm, PReLU
+
+    if isinstance(mod, nn.Conv2d):
+        return conv2d_rows(x, mod, h, group, mod.padding[0])
+    if isinstance(mod, nn.ConvTranspose2d):
+        return conv_transpose2d_rows(x, mod, h, group)
+    if isinstance(mod, InstanceNorm):
+        return instance_norm(x, mod.eps, group, h * x.shape[3]), h
+    if isinstance(mod, BatchNorm):
+        return mod(x, h), h
+    if isinstance(mod, nn.Dropout):
+        if not mod.training or mod.p == 0:
+            return x, h
+        keep = plane_draw_rows(x, h, group, lambda shape: F.dropout(
+            x.new_ones(shape), mod.p, True))
+        return x * keep, h
+    if isinstance(mod, GaussianNoise):
+        if not mod.training:
+            return x, h
+        noise = plane_draw_rows(x, h, group, lambda shape: (
+            torch.randn(shape, device=x.device) - 0.5) / 10.0)
+        return x + noise.to(x.dtype), h
+    if isinstance(mod, nn.Upsample) and mod.mode == "nearest" and \
+            mod.size is None and float(mod.scale_factor) == 2.0:
+        return upsample2_rows(x, h, group)
+    if isinstance(mod, (nn.AvgPool2d, nn.MaxPool2d)) and _is_2x2(mod):
+        pool = F.avg_pool2d if isinstance(mod, nn.AvgPool2d) else \
+            F.max_pool2d
+        return pool2d_rows(x, h, group, pool)
+    if isinstance(mod, ResnetBlock):
+        return x + _run(mod.conv_block, x, h, group)[0], h
+    if isinstance(mod, UnetSkipConnectionBlock):
+        # the first layer of an inner level is an in-place LeakyReLU: the
+        # skip half is LeakyReLU(x), as in the one process
+        y, h_y = _run(mod.model, x, h, group)
+        return (y, h_y) if mod.outermost else _cat((x, h), (y, h_y))
+    if isinstance(mod, InceptionBlock):
+        out, _ = _cat(*(_run(getattr(mod, f"layer{i}"), x, h, group)
+                        for i in range(mod.width)))
+        out = mod.nonlinearity(_layer(mod.norm1, out, h, group)[0])
+        out = _run(mod.branch1x1, out, h, group)[0]
+        out = _layer(mod.drop, _layer(mod.norm2, out, h, group)[0], h,
+                     group)[0]
+        return mod.nonlinearity(out + x), h
+    if isinstance(mod, (EncoderBlock, DecoderUpBlock, OutputBlock)):
+        return _run(mod.model, x, h, group)
+    if isinstance(mod, nn.Sequential):
+        return _run(mod, x, h, group)
+    if isinstance(mod, (nn.ReLU, nn.LeakyReLU, nn.Tanh, nn.Sigmoid, nn.SELU,
+                        PReLU, nn.Identity)):
+        return mod(x), h
+    raise NotImplementedError(
+        f"--parallel sp has no row split for {type(mod).__name__} "
+        "(ROADMAP A1c)")
 
 
 def _run(layers: Sequence[nn.Module], x: torch.Tensor, h: int, group
          ) -> Tuple[torch.Tensor, int]:
     """Apply ``layers`` in order to this rank's rows ``x`` of a plane of
     height ``h``; returns the rows out and their plane's height."""
-    from ..models.networks import ResnetBlock
-    from ..ops.kernels.instance_norm import instance_norm
-    from ..ops.layers import InstanceNorm
-
     layers = list(layers)
     i = 0
     while i < len(layers):
@@ -272,23 +505,99 @@ def _run(layers: Sequence[nn.Module], x: torch.Tensor, h: int, group
             x, h = conv2d_rows(x, nxt, h, group, pads.pop(), "reflect")
             i += 2
             continue
-        if isinstance(mod, nn.Conv2d):
-            x, h = conv2d_rows(x, mod, h, group, mod.padding[0])
-        elif isinstance(mod, nn.ConvTranspose2d):
-            x, h = conv_transpose2d_rows(x, mod, h, group)
-        elif isinstance(mod, InstanceNorm):
-            x = instance_norm(x, mod.eps, group, h * x.shape[3])
-        elif isinstance(mod, ResnetBlock):
-            x = x + _run(mod.conv_block, x, h, group)[0]
-        elif isinstance(mod, (nn.ReLU, nn.LeakyReLU, nn.Tanh, nn.Sigmoid,
-                              nn.Dropout, nn.Identity)):
-            x = mod(x)
-        else:
-            raise NotImplementedError(
-                f"--parallel sp has no row split for {type(mod).__name__} "
-                "(ROADMAP A1c)")
+        x, h = _layer(mod, x, h, group)
         i += 1
     return x, h
+
+
+# ---- the nets' row forwards ---------------------------------------------
+def _trunk_rows(net, x, h, group) -> List[Tuple[torch.Tensor, int]]:
+    """``UNetTrunk.forward`` (and ``UNetEncoder.forward``, the same minus
+    the center's up block and noise) on rows: the five features with
+    their heights."""
+    feats = []
+    for block in (net.conv1, net.conv2, net.conv3, net.conv4):
+        x, h = pool2d_rows(*_layer(block, x, h, group), group)
+        feats.append((x, h))
+    y, h = _layer(net.center, x, h, group)
+    noise = getattr(net, "noise", None)
+    feats.append(_layer(noise, y, h, group) if noise is not None
+                 else (y, h))
+    return feats
+
+
+def _head_rows(head, feats, group) -> List[torch.Tensor]:
+    """``UNetHead.outputs`` on rows: [output4, output3, output2, output1]."""
+    (conv1, h1), (conv2, h2), (conv3, h3), _, center_out = feats
+    w = head.weight
+
+    def both(cat, deconv, output):
+        return _layer(deconv, *cat, group), _layer(output, *cat, group)
+
+    cat4 = _cat(center_out, (conv3 * w, h3))
+    deconv4, output4 = both(cat4, head.deconv4, head.output4)
+    cat3 = _cat(deconv4, (conv2 * w * 0.5, h2),
+                upsample2_rows(*output4, group))
+    deconv3, output3 = both(cat3, head.deconv3, head.output3)
+    cat2 = _cat(deconv3, (conv1 * w * 0.1, h1),
+                upsample2_rows(*output3, group))
+    deconv2, output2 = both(cat2, head.deconv2, head.output2)
+    cat1 = _cat(deconv2, upsample2_rows(*output2, group))
+    output1 = _layer(head.output1, *cat1, group)
+    return [t for t, _ in (output4, output3, output2, output1)]
+
+
+def _input_rows(x: torch.Tensor, group) -> int:
+    """A net input's height: its rows split evenly over ``group``."""
+    return x.shape[2] * dist.get_world_size(group)
+
+
+def _sequential_net(attr: str):
+    def forward(net, group, x):
+        return _run(getattr(net, attr), x, _input_rows(x, group), group)[0]
+    return forward
+
+
+def _unet_forward(net, group, x):
+    return _layer(net.model, x, _input_rows(x, group), group)[0]
+
+
+def _task_net_forward(net, group, x, domain: str = "syn"):
+    feats = _trunk_rows(net.trunk, x, _input_rows(x, group), group)
+    head = net.head_syn if domain == "syn" else net.head_real
+    return [feats[3][0], _head_rows(head, feats, group)[-1]]
+
+
+def _encoder_forward(net, group, x):
+    return [t for t, _ in _trunk_rows(net, x, _input_rows(x, group), group)]
+
+
+def _decoder_forward(net, group, feats):
+    from .collectives import all_reduce_
+
+    # the features' heights: their rows summed over the group, one message
+    rows = torch.tensor([f.shape[2] for f in feats], device=feats[0].device)
+    heights = all_reduce_(rows, group).tolist()
+    feats = list(zip(feats, heights))
+    center_out = _layer(net.deconv_center, *feats[4], group)
+    return [feats[3][0], *_head_rows(net.head, [*feats[:4], center_out],
+                                     group)]
+
+
+@functools.lru_cache(maxsize=None)
+def _row_forwards():
+    from ..models.encoder_decoder import UNetDecoder, UNetEncoder
+    from ..models.networks import (NLayerDiscriminator, PixelDiscriminator,
+                                   ResnetGenerator, UnetGenerator)
+    from ..models.seg_network import UNetGenerator
+
+    return {ResnetGenerator: _sequential_net("model"),
+            NLayerDiscriminator: _sequential_net("model"),
+            PixelDiscriminator: _sequential_net("net"),
+            UnetGenerator: _unet_forward,
+            UNetGenerator: _task_net_forward,
+            UNetEncoder: _encoder_forward,
+            UNetDecoder: _decoder_forward}
 
 
 class _SpatialNet:
@@ -296,34 +605,29 @@ class _SpatialNet:
     ``sp_group`` (see the module's docstring)."""
     sp_group = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, *args, **kw):
         g = self.sp_group
         if g is None or dist.get_world_size(g) == 1:
-            return super().forward(x)
-        return _run(self.model, x, x.shape[2] * dist.get_world_size(g), g)[0]
+            return super().forward(*args, **kw)
+        return _row_forwards()[self.sp_base](self, g, *args, **kw)
 
 
 @functools.lru_cache(maxsize=None)
 def _spatial_class(cls):
-    return type(f"Spatial{cls.__name__}", (_SpatialNet, cls), {})
+    return type(f"Spatial{cls.__name__}", (_SpatialNet, cls),
+                {"sp_base": cls})
 
 
 def spatial(net: nn.Module, group) -> nn.Module:
-    """Make ``net`` (a ``ResnetGenerator`` with ConvTranspose ups, or an
-    ``NLayerDiscriminator``) run on rows split over ``group``, in place;
-    returns it. Its parameters, names and state dict do not change."""
-    from ..models.networks import NLayerDiscriminator, ResnetGenerator
-
-    ok = (isinstance(net, NLayerDiscriminator) or
-          (isinstance(net, ResnetGenerator)
-           and net.up_mode == "convtranspose"))
-    if not ok:
+    """Make ``net`` (one of the nets of the module's docstring) run on rows
+    split over ``group``, in place; returns it. Its parameters, names and
+    state dict do not change."""
+    base = getattr(net, "sp_base", type(net))
+    if base not in _row_forwards():
         raise NotImplementedError(
-            f"--parallel sp has no row split for {type(net).__name__} "
+            f"--parallel sp has no row split for {base.__name__} "
             "(ROADMAP A1c)")
-    base = type(net)
-    if not issubclass(base, _SpatialNet):
-        net.__class__ = _spatial_class(base)
+    net.__class__ = _spatial_class(base)
     net.sp_group = group
     return net
 

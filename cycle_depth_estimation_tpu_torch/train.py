@@ -81,8 +81,9 @@ global (``parallel/``). ``--mesh_shape D M`` puts the ranks on ``data`` ×
 ``model``; ``place_state`` lays the state out: ``--zero opt|fsdp`` splits
 Adam's moments (and the parameters) over ``data``, ``--parallel tp`` the
 CycleGAN generators' trunk channels over ``model``, ``--parallel sp`` the
-images' height over ``model`` (``parallel/spatial.py``: cycle_gan with a
-resnet generator, a basic or n_layers discriminator and InstanceNorm).
+images' height over ``model`` (``parallel/spatial.py``: cycle_gan with any
+generator, discriminator and norm, pix2pix, seg_cycle and seg; the loader's
+image height must divide by the ``model`` size).
 Pipelines are a library call (``parallel/pipeline.py``
 ``gpipe_apply``), not a CLI mode. The backend is NCCL when
 every rank has its own card, gloo otherwise (printed first). Rank 0 alone
@@ -190,10 +191,10 @@ def place_state(cfg, state, groups, distributed: bool = True):
       resnet trunks and their Adam moments over ``model``
       (``parallel/tensor.py``); with ``--zero`` the rest takes ZeRO's
       layout;
-    - ``--parallel sp``: the state stays replicated, the four nets run on
-      this rank's rows of the images (``parallel/spatial.py``), the
-      batch's height is split at the host→device boundary; with
-      ``--zero`` ZeRO's layout over ``data``.
+    - ``--parallel sp`` (``SP_MODELS``): the state stays replicated, the
+      nets run on this rank's rows of the images and label maps
+      (``parallel/spatial.py``), the batch's height is split at the
+      host→device boundary; with ``--zero`` ZeRO's layout over ``data``.
     """
     from .parallel.spatial import spatial_state
     from .parallel.tensor import shard_state_tp
@@ -211,6 +212,10 @@ def place_state(cfg, state, groups, distributed: bool = True):
     return state
 
 
+# the models whose nets ``parallel/spatial.py`` splits by rows
+SP_MODELS = ("cycle_gan", "pix2pix", "seg_cycle", "seg")
+
+
 def check_layout(cfg, groups, distributed: bool) -> None:
     """Refuse, with the JAX CLI's messages, what ``place_state`` cannot
     lay out."""
@@ -219,25 +224,28 @@ def check_layout(cfg, groups, distributed: bool) -> None:
             f"--parallel {cfg.parallel!r} is not a train-CLI mode (dp|sp|tp);"
             " pipeline parallelism is a library feature —"
             " parallel/pipeline.py gpipe_apply")
-    if cfg.parallel == "sp" and (
-            cfg.model != "cycle_gan" or "resnet" not in cfg.net_g
-            or cfg.net_d not in ("basic", "n_layers")
-            or cfg.norm != "instance"):
+    if cfg.parallel == "sp" and cfg.model not in SP_MODELS:
         raise SystemExit(
-            "--parallel sp is wired for cycle_gan with a resnet generator, a"
-            " basic or n_layers discriminator and --norm instance (got"
-            f" model={cfg.model!r}, net_g={cfg.net_g!r},"
-            f" net_d={cfg.net_d!r}, norm={cfg.norm!r}); sp for the other"
-            " models is ROADMAP A1c")
+            f"--parallel sp is wired for {', '.join(SP_MODELS)} with any of"
+            f" their nets and norms (got model={cfg.model!r}); sp for the"
+            " S2D family, rf_lw(7) and semantic_trans(_full) is ROADMAP A1c")
     if cfg.parallel in ("sp", "tp") and groups.model is None:
         raise SystemExit(
             f"--parallel {cfg.parallel} needs a 'model' mesh axis: pass"
             " --mesh_shape D M (axes default to data model)")
-    if cfg.parallel == "sp" and cfg.fine_size % groups.model_size != 0:
-        raise SystemExit(
-            f"--parallel sp: --fine_size {cfg.fine_size} is not divisible by"
-            f" the model axis ({groups.model_size}); every rank holds"
-            " fine_size/M rows of each image")
+    if cfg.parallel == "sp":
+        from .data import image_height
+
+        h, m = image_height(cfg), groups.model_size
+        if h % m != 0:
+            what = (f"--fine_size {h}" if h == cfg.fine_size else
+                    f"the {cfg.dataset_mode} loader's height {h} (--fine_size"
+                    f" {cfg.fine_size})")
+            raise SystemExit(
+                f"--parallel sp: {what} is not divisible by the model axis"
+                f" ({m}); every rank holds H/M rows of each image (the global"
+                f" size of the height should be divisible by {m}, but it is"
+                f" equal to {h})")
     if cfg.zero != "off":
         if cfg.zero not in ("opt", "fsdp"):
             raise SystemExit(f"--zero {cfg.zero!r}: expected off|opt|fsdp")

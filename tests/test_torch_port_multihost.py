@@ -1,9 +1,10 @@
 """The port's multi-process training on the CPU (its counterpart of
 ``tests/test_multihost.py``): the train CLI in two local processes joined
 by ``--coordinator_address/--num_processes/--process_index`` against the
-same CLI in one process, and the pix2pix (BatchNorm) and S2D steps on two
-spawned gloo ranks against one process, at the dryrun's reduced S2D
-config. Every process has a timeout."""
+same CLI in one process (also pix2pix under ``--parallel sp``), and the
+pix2pix (BatchNorm) and S2D steps on two spawned gloo ranks against one
+process, at the dryrun's reduced S2D config. Every process has a
+timeout."""
 
 import os
 import shutil
@@ -136,6 +137,32 @@ def test_sp_cli_equals_one_process(cli_runs):
     assert pngs and all(Image.open(p).size == (32, 32) for p in pngs)
 
 
+def test_sp_cli_trains_pix2pix_as_one_process(cli_runs):
+    """pix2pix (unet_128, BatchNorm, dropout) under --mesh_shape 1 2
+    --parallel sp in two processes against the CLI in one: each process
+    holds 64 of the 128 rows of every AB pair, and the saved nets are the
+    one process's by the pooled checks."""
+    tmp = cli_runs[0]
+    rng = np.random.RandomState(7)
+    os.makedirs(tmp / "data" / "train", exist_ok=True)
+    for j in range(2):
+        Image.fromarray(rng.randint(0, 256, (128, 256, 3), np.uint8)).save(
+            tmp / "data" / "train" / f"ab_{j}.png")
+    p2p = ["--model", "pix2pix", "--netG", "unet_128", "--ngf", "4",
+           "--ndf", "4", "--fine_size", "128", "--load_size", "128",
+           "--batch_size", "2", "--pool_size", "0", "--name", "p2p"]
+    one, _ = _digest_runs(tmp, "p2p_one", p2p, 1)
+    sp, outs = _digest_runs(tmp, "p2p_sp", [*p2p, "--mesh_shape", "1", "2",
+                                            "--parallel", "sp"], 2)
+    assert sp[0] == sp[1], sp
+    assert "backend gloo (CPU ranks)" in outs[0]
+    assert float(sp[0]) == pytest.approx(float(one[0]), rel=1e-5)
+    for net in ("G", "D"):
+        a, b = (torch.load(tmp / run / "p2p" / f"latest_net_{net}.pth")
+                for run in ("p2p_one", "p2p_sp"))
+        dryrun.pooled_params_close(b, a, 2e-4, f"pix2pix sp CLI {net}")
+
+
 def test_zero_checkpoints_load_without_zero_and_the_reverse(cli_runs):
     tmp = cli_runs[0]
     _digest_runs(tmp, "zero", ["--zero", "fsdp"], 2)
@@ -169,9 +196,9 @@ def test_dp_refuses_what_the_port_lacks(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "pix2pix", "--netG", "unet_128"],
-    ["--netD", "pixel"],
-    ["--norm", "batch"],
+    ["--model", "S2D"],
+    ["--model", "rf_lw"],
+    ["--model", "semantic_trans"],
 ])
 def test_sp_refuses_what_it_has_no_row_split_for(tmp_path, extra):
     from cycle_depth_estimation_tpu_torch.train import main
