@@ -283,7 +283,14 @@ one-process runs they are held against count on no path. The path
    gradients; the conv biases a norm follows left out); every rank 156
    launches of each split entry a SegCycle step, none in pix2pix, none of
    the fused pair (the path ``spatial_nets``); then the split entries
-   timed on a rank's rows of the SegCycle step's planes.
+   timed on a rank's rows of the SegCycle step's planes. 26c, in the same
+   spawn: one step each of S2D, S2D_base and S2D_alt at the JAX defaults'
+   full widths, batch 1, 192×576, under ``--mesh_shape 1 2 --parallel
+   sp``, each phase held against the one process on the card from the
+   state and input before it (``dryrun.phase_by_phase``: Adam's eps 1e-3
+   on both sides, the same keep-masks) by 23b's S2D bars; no InstanceNorm
+   launch, split or fused (BatchNorm nets: the path ``spatial_s2d``); each
+   sp step's seconds a rank beside its one process's.
 
 
 The last three lines
@@ -4390,9 +4397,15 @@ SP_NETS = {
     "26b seg_cycle": dict(model="seg_cycle", net_g=f"resnet_{N_BLOCKS}blocks",
                           ngf=NGF, ndf=NDF, fine_size=SEG_H),
 }
+# Phase 26c, in 23b's spawn: S2D, S2D_base and S2D_alt at full width,
+# batch 1, 192×576, under --mesh_shape 1 2 --parallel sp, each phase held
+# against one process on the card by 23b's S2D bars
+SP_S2D = {f"26c {m}": {"model": m} for m in ("S2D", "S2D_base", "S2D_alt")}
+SP_S2D_BATCH = 1
 # a rank's split InstanceNorm launches a step (each entry), and the fused
-# pair's: pix2pix holds BatchNorms only
-SP_NETS_LAUNCHES = {"26a pix2pix": 0, "26b seg_cycle": SEG_PER_STEP}
+# pair's: pix2pix and the S2D family hold BatchNorms only
+SP_NETS_LAUNCHES = {"26a pix2pix": 0, "26b seg_cycle": SEG_PER_STEP,
+                    **dict.fromkeys(SP_S2D, 0)}
 
 
 def cycle_cli_args(tmp, name, *extra):
@@ -4617,6 +4630,8 @@ def phase_parallel_ranks():
     for name, (cfg, b) in nets.items():
         cases[name] = (dryrun.model_step, (cfg, b, SP_LAYOUT, None, PAR_EPS,
                                            1, False, True))
+    for name, (cfg, b) in spatial_s2d_inputs().items():
+        cases[name] = (dryrun.phase_by_phase, (cfg, b, SP_LAYOUT, PAR_EPS))
     # the one-process runs go on beside the ranks (a thread waits for them)
     world = {}
 
@@ -4730,6 +4745,7 @@ def phase_parallel_ranks():
         + " | S2D dp, phase by phase from one process: "
         + "; ".join(s2d_lines))
     nets_out = phase_spatial_nets(ranks, nets_runs, t_nets, misses)
+    s2d_line, s2d_split = phase_spatial_s2d(ranks, misses)
     if misses:
         raise AssertionError("23b/24a/26: " + "; ".join(misses))
     counted = [r[c]["launches"] for r in ranks for c in PAR_LAYOUTS]
@@ -4744,10 +4760,11 @@ def phase_parallel_ranks():
         f"{max(r[SP_CASE]['seconds'] for r in ranks):.1f} s a rank (two "
         "ranks sharing the card over gloo: no timing of scaling)")
     log(f"phase 26 ok: {nets_out['line']}")
+    log(f"phase 26c ok: {s2d_line}")
     return {"fwd": sum(f for ls in counted for f, _ in ls),
             "bwd": sum(b for ls in counted for _, b in ls),
             "split": dict(zip(SPLIT_NAMES, split)),
-            "spatial_nets": nets_out["split"]}
+            "spatial_nets": nets_out["split"], "spatial_s2d": s2d_split}
 
 
 def spatial_nets_inputs():
@@ -4841,6 +4858,72 @@ def phase_spatial_nets(ranks, runs, t_one, misses):
             "line": f"one process {PAR_RUNS}× each {t_one:.1f} s (beside the "
             "ranks); "
             + " | ".join(parts)}
+
+
+def spatial_s2d_inputs():
+    """Phase 26c's cases: (config, global batch) of each model."""
+    return {name: ({**cfg, "batch_size": SP_S2D_BATCH,
+                    "tpu_precision": "highest"},
+                   s2d_batch(SP_S2D_BATCH, seed=26, size=(S2D_H, S2D_W)))
+            for name, cfg in SP_S2D.items()}
+
+
+def phase_spatial_s2d(ranks, misses):
+    """Phase 26c, from 23b's spawn: S2D, S2D_base and S2D_alt at the JAX
+    defaults' full widths (S2D's DenseNet (6, 12, 32, 32), growth 32, mid
+    1024), batch 1, 192×576, under ``--mesh_shape 1 2 --parallel sp`` on
+    two ranks sharing the card, TF32 off, each phase held against the one
+    process on the card from the state and input before it
+    (``dryrun.phase_by_phase``, Adam's eps 1e-3 on both sides, the one
+    process's keep-masks) by 23b's S2D bars: losses within 1e-3, every
+    net by the three pooled checks at its own lr; a rank launches no
+    InstanceNorm entry, split or fused (``SP_NETS_LAUNCHES``: BatchNorm
+    nets). Appends misses; returns the log line (each model's sp step in
+    seconds a rank beside its one process's, on the card named) and the
+    split entries' launches over the ranks (the ``spatial_s2d`` path)."""
+    parts, split = [], [0] * 4
+    for name in SP_S2D:
+        for r in ranks:
+            rank = ranks.index(r)
+            launches = [sum(ls) for ls in zip(*(ph["launches"]
+                                                for ph in r[name]))]
+            split = [a + b for a, b in zip(split, launches[2:])]
+            if launches != [SP_NETS_LAUNCHES[name]] * 6:
+                misses.append(f"{name} rank {rank}: InstanceNorm launches "
+                              f"(fused fwd, bwd, split ×4) {launches}")
+            for ph in r[name]:
+                tag = f"{name} rank {rank} phase {ph['phase']}"
+                bad = {k: v for k, v in ph["losses"].items()
+                       if not k.startswith("acc") and v > PAR_S2D_LOSS_REL}
+                if bad:
+                    misses.append(f"{tag}: losses apart {bad}")
+                for net, st in ph["nets"].items():
+                    if not st["ok"]:
+                        misses.append(f"{tag} {net}: {st}")
+        phases = ranks[0][name]
+        worst = max((v for ph in phases for k, v in ph["losses"].items()
+                     if not k.startswith("acc")), default=0.0)
+        lr = max((st["max_over_lr"] for ph in phases
+                  for st in ph["nets"].values()), default=0.0)
+        parts.append(
+            f"{name[4:]}: losses ≤ {worst:.1e} apart, parameters ≤ "
+            f"{lr:.2g} lr; the sp step "
+            + "/".join(f"{sum(ph['split_s'] for ph in r[name]):.2f}"
+                       for r in ranks)
+            + " s a rank, its one process "
+            + "/".join(f"{sum(ph['one_s'] for ph in r[name]):.2f}"
+                       for r in ranks) + " s")
+    return (f"{S2D_H}x{S2D_W}, batch {SP_S2D_BATCH}, {S2D_H // SP_RANKS} "
+            f"rows a rank, phase by phase against one process; "
+            + " | ".join(parts) + f"; no InstanceNorm launch; {card()}",
+            dict(zip(SPLIT_NAMES, split)))
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def spatial_nets_times(gen):
@@ -5376,6 +5459,7 @@ def main() -> int:
     finally:
         if "cli" in rf_cli:
             end_cli(rf_cli.pop("cli"), "rf_lw train CLI")
+    t_18 = time.perf_counter() - t0
     # phases 23b, 24a, 24b and 26 count in their ranks alone, each rank
     # around its own steps: the one-process runs they are held against are
     # no path. 24b's ranks (host-bound) run beside phase 23, whose CLIs
@@ -5479,7 +5563,9 @@ def main() -> int:
                         + ("105" if name.startswith("in_bwd") else "55")),
            "launches": spatial[name] + spatial_nets[name],
            "launches_by_path": {"spatial": spatial[name],
-                                "spatial_nets": spatial_nets[name]},
+                                "spatial_nets": spatial_nets[name],
+                                "spatial_s2d": par_ranks["spatial_s2d"][
+                                    name]},
            "max_abs_err": split_err,
            "ms": split_tot[name]["ms"],
            "plain_ms": split_tot[name]["plain_ms"],
@@ -5531,11 +5617,9 @@ def main() -> int:
         "bf16, int8_epilogue in bf16 up mode) or of one fp32 CycleGAN train "
         f"step ({TRAIN_PER_STEP}: instance_norm_bwd; and a rank's under "
         f"--parallel sp on {SP_RANKS} ranks: the split entries, their "
-        f"spatial_nets_step a rank's SegCycle sp step); total "
-        f"{time.perf_counter() - t0:.1f} s")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+        f"spatial_nets_step a rank's SegCycle sp step); through phase 18 "
+        f"{t_18:.1f} s, total {time.perf_counter() - t0:.1f} s")
+    smi = card()
     check_no_children()
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -37,6 +37,13 @@ state.
 losses fp32); ``--remat`` recomputes the G_2 and R_D applications in
 backward (``torch.utils.checkpoint``), their BatchNorm statistics moved
 once.
+
+Under ``--parallel sp`` (``parallel/spatial_s2d.py``) the six nets run on
+this rank's rows of the images, label maps, depth maps and bands; the
+losses are means over the whole planes (``spatial_mean``, ``global_mean``)
+and ``eval_step`` gathers the visuals' rows. With ``--remat`` the
+recompute runs the halo exchanges and BatchNorm's all-reduces again, in
+one order on every rank.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import register_model
 from ..ops.layers import running_stats_kept, set_compute_dtype
+from ..parallel.collectives import gather_spatial
 from .base_model import BaseModel, ModelState, make_optimizer
 from .networks import gan_loss, l1_loss
 from .s2d_networks import bce_dep_loss, define_s2d_nets, get_masks
@@ -269,4 +277,5 @@ class S2DModel(BaseModel):
                        syn_dep_ref=syn_dep_o, real_dep_ref=real_dep_o,
                        syn_seg_pre=syn_seg.argmax(1),
                        real_seg_pre=real_seg.argmax(1))
+        visuals = {k: gather_spatial(v) for k, v in visuals.items()}
         return self.metrics_dict(**metrics), visuals

@@ -24,6 +24,8 @@ BatchNorm statistics move in every phase (2, 3, 2, 1 forwards), G_1's and
 G_2's once, in phase 1. Dis_en's Dropout2d is live in all four of its
 forwards, each with keep-masks drawn as S2D_base draws them
 (``DropMaskModel``). Adam at ``lr``, Dis_en at ``lr_d``; eps 1e-8.
+Under ``--parallel sp`` the six nets run on this rank's rows
+(``parallel/spatial_s2d.py``), as S2D_base's do.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import register_model
+from ..parallel.collectives import gather_spatial
 from .base_model import ModelState
 from .networks import gan_loss, l1_loss
 from .s2d_base import DropMaskModel
@@ -146,4 +149,5 @@ class S2DAltModel(DropMaskModel):
             metrics["seg_real"] = _ce(seg_r, real_seg_l)
             metrics["acc_real"] = seg_accuracy(seg_r, real_seg_l, 255)
             visuals["real_seg_l"] = real_seg_l
+        visuals = {k: gather_spatial(v) for k, v in visuals.items()}
         return self.metrics_dict(**metrics), visuals

@@ -31,7 +31,10 @@ one in ``G``, each branch's own in ``D``). Each phase takes its gradient
 with ``torch.autograd.grad`` over the nets it updates, an unused parameter
 (G_2's ``conv0`` in mode 'S') getting a zero gradient so that Adam counts
 its step as optax does. Adam at ``lr`` and eps 1e-8 for every net, no LR
-schedule.
+schedule. Under ``--parallel sp`` the nets run on this rank's rows
+(``parallel/spatial_s2d.py``), Dis_en's keep-masks are the same on every
+``model`` rank, the means are global and ``eval_step`` gathers the
+visuals' rows.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import torch
 
 from . import register_model
 from ..ops.layers import set_compute_dtype
-from ..parallel.collectives import global_rows, local_rows
+from ..parallel.collectives import gather_spatial, global_rows, local_rows
 from .base_model import BaseModel, ModelState, make_optimizer
 from .networks import gan_loss, l1_loss
 from .s2d_networks import CLASS_WEIGHTS_28, define_s2d_base_nets
@@ -249,4 +252,5 @@ class S2DBaseModel(DropMaskModel):
             metrics["seg_real"] = self._ce(seg_real, real_seg_l)
             metrics["acc_real"] = seg_accuracy(seg_real, real_seg_l, 255)
             visuals["real_seg_l"] = real_seg_l
+        visuals = {k: gather_spatial(v) for k, v in visuals.items()}
         return self.metrics_dict(**metrics), visuals

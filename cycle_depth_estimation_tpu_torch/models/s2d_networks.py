@@ -73,6 +73,7 @@ from torch import nn
 from ..ops.init import init_weights
 from ..ops.layers import (BatchNorm, Conv2d, ConvTranspose2d, PReLU,
                           avg_pool, resize_bilinear, resize_nearest)
+from ..parallel.collectives import spatial_mean
 from .networks import ResnetBlock
 
 LEAK = 0.02
@@ -1527,13 +1528,16 @@ def bce_dep_loss(pred: torch.Tensor, target: torch.Tensor,
     broadcasts against the 4-channel target and masks, as in the reference.
     ``F.binary_cross_entropy`` is ATen's: logs clamped at −100, and a
     backward with its denominator clamped at 1e-12, finite where a bf16
-    tanh saturates to exactly ±1."""
+    tanh saturates to exactly ±1. Each mean is ``spatial_mean``: under
+    ``--parallel sp`` over the whole planes."""
     pred, target = pred.float(), target.float()
     p = (pred + 1) / 2
     t = (target + 1) / 2
-    return (F.binary_cross_entropy(p * o_m, t * o_m)
-            + F.binary_cross_entropy(p * z_m, t * z_m)
-            + 50.0 * (pred - target).abs().mean())
+    return (spatial_mean(F.binary_cross_entropy(p * o_m, t * o_m,
+                                                reduction="none"))
+            + spatial_mean(F.binary_cross_entropy(p * z_m, t * z_m,
+                                                  reduction="none"))
+            + 50.0 * spatial_mean((pred - target).abs()))
 
 
 def bce_dep_loss_truncated(pred: torch.Tensor, target: torch.Tensor,
@@ -1558,9 +1562,11 @@ def bce_gan_loss(pred: torch.Tensor, target_is_real: bool) -> torch.Tensor:
     fp32 (float64 stays float64), the output clamped to [1e-7, 1 − 1e-7]
     as the JAX ``bce_gan_loss`` does (BCE is NaN past [0, 1], where a
     LeakyReLU head goes). ``F.binary_cross_entropy`` is the JAX formula
-    inside that range, with ATen's clamped backward."""
+    inside that range, with ATen's clamped backward; the mean is
+    ``spatial_mean``."""
     p = _at_least_fp32(pred).clamp(1e-7, 1.0 - 1e-7)
-    return F.binary_cross_entropy(p, torch.full_like(p, float(target_is_real)))
+    return spatial_mean(F.binary_cross_entropy(
+        p, torch.full_like(p, float(target_is_real)), reduction="none"))
 
 
 def real_dep_loss(seg_p: torch.Tensor, seg_l: torch.Tensor,

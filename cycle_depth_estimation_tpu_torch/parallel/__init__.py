@@ -4,7 +4,8 @@ collectives XLA inserts for the JAX package written out in
 ``collectives``. ``mesh`` starts the process group and lays the ranks out;
 ``zero`` splits optimizer state (and parameters) over ``data``; ``tensor``
 splits the CycleGAN trunk's channels over ``model``; ``spatial`` its
-images' height, with halo exchanges; ``pipeline`` runs a trunk as a GPipe
+images' height, with halo exchanges (``spatial_s2d``: the S2D family's
+nets); ``pipeline`` runs a trunk as a GPipe
 over ``stage``; ``dryrun`` runs every layout on spawned CPU ranks."""
 
 from .mesh import (batch_sharding, host_shard_batch, make_mesh, replicated,

@@ -33,8 +33,9 @@ stage printing a stamped line:
 its own, a free localhost port, one timeout for the world; every process
 of the ranks' sessions is killed on the way out). A rank's work:
 ``model_step`` builds, lays out, steps and gathers as the train CLI does;
-``phase_by_phase`` holds a phased model's step (S2D's) phase by phase from
-one process's input; ``run_cases`` runs several in one world.
+``phase_by_phase`` holds a phased model's step (S2D's, S2D_base's,
+S2D_alt's) phase by phase from one process's input, under dp or
+``--parallel sp``; ``run_cases`` runs several in one world.
 """
 
 from __future__ import annotations
@@ -408,34 +409,83 @@ def _rows(v, n: int):
     return v
 
 
-def phase_by_phase(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor]
+def _plane_rows(v, size: int, index: int):
+    """``v`` with every tensor of rank ≥ 3 cut to rank ``index``'s rows of
+    its height (the dimension before the last: NCHW maps, NHW label maps)
+    over ``size`` ranks, as ``--parallel sp`` holds them."""
+    from .mesh import row_range
+
+    if torch.is_tensor(v):
+        if v.dim() < 3:
+            return v
+        a, b = row_range(v.shape[-2], size, index)
+        return v.narrow(v.dim() - 2, a, b - a)
+    if isinstance(v, dict):
+        return {k: _plane_rows(x, size, index) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_plane_rows(x, size, index) for x in v)
+    return v
+
+
+def phase_by_phase(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                   layout: Optional[Dict[str, Any]] = None,
+                   adam_eps: Optional[float] = None
                    ) -> List[Dict[str, Any]]:
-    """A phased model's step (S2D's ``PHASES``) on this rank, each phase
-    held from one process's input: before each phase the state and the
-    step context are copied; the phase runs in one process on the global
-    batch (no collective), then again from the copy under data
-    parallelism on this rank's rows; the step goes on from the
-    one-process state. Returns, per phase, each new loss's distance
-    relative to the one-process value and ``params_apart`` of every net
-    (each at its optimizer's lr)."""
+    """A phased model's step (S2D's ``PHASES``, S2D_base's, S2D_alt's) on
+    this rank, each phase held from one process's input: before each
+    phase the state and the step context are copied; the phase runs in one
+    process on the global batch (no collective), then again from the copy
+    under ``layout`` (default: every rank on ``data``) on this rank's rows
+    of the batch, and under ``--parallel sp`` of each map's height, with
+    the nets running on rows; Dis_en's keep-masks of the split run are
+    those the one process drew. The step goes on from the one-process
+    state. Adam's eps is set to ``adam_eps`` where given. Returns, per
+    phase, each new loss's distance relative to the one-process value,
+    ``params_apart`` of every net (each at its optimizer's lr), the
+    seconds of the one-process and the split run (``one_s``,
+    ``split_s``), and the InstanceNorm launches of the split run (fused
+    forward and backward, then the four split entries)."""
     from ..config import Config, apply_model_defaults
     from ..device import set_precision
     from ..models import create_model
+    from ..models.s2d_base import PhasedModel
+    from ..ops.kernels import instance_norm as kin
     from . import collectives
+    from .spatial import spatial_state
 
+    counted = (kin.instance_norm, kin.instance_norm_backward, kin.in_stats,
+               kin.in_apply, kin.in_bwd_stats, kin.in_bwd_apply)
+
+    def clock():
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    layout = dict(layout or {})
     device = rank_device()
     kw = {"device": device, **cfg_kw}
     cfg = apply_model_defaults(Config(**kw), set(kw))
     set_precision(cfg.tpu_precision)
-    groups, single = layout_groups({}), collectives.Groups()
+    groups, single = layout_groups(layout), collectives.Groups()
     prev = collectives.activate(single)
     try:
         model = create_model(cfg)
         state = model.init_state()
+        if adam_eps is not None:
+            for opt in state.optimizers.values():
+                for g in opt.param_groups:
+                    g["eps"] = adam_eps
+        if groups.spatial:
+            spatial_state(state, groups.model)
         for net in state.nets.values():
             net.train()
         n = next(iter(batch.values())).shape[0]
-        ctx = model._ctx({k: v.to(device) for k, v in batch.items()}, state)
+        b = {k: v.to(device) for k, v in batch.items()}
+        ctx = (model._ctx(state, b) if isinstance(model, PhasedModel)
+               else model._ctx(b, state))
+        drawn, masks = [], ctx.get("masks")
+        if callable(masks):  # record the one process's draws
+            ctx["masks"] = lambda: drawn.append(masks()) or drawn[-1]
 
         def snapshot():
             return ({k: _copy(net.state_dict())
@@ -451,17 +501,27 @@ def phase_by_phase(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor]
 
         out = []
         for name, phase in model.PHASES:
-            pre, pre_ctx = snapshot(), _copy(ctx)
+            pre, pre_ctx, k0 = snapshot(), _copy(ctx), len(drawn)
+            t = clock()
             phase(model, state, ctx)
+            one_s = clock() - t
             new = [k for k in ctx["metrics"] if k not in pre_ctx["metrics"]]
             want = {k: {p: v.detach().clone()
                         for p, v in net.named_parameters()}
                     for k, net in state.nets.items()}
             post = snapshot()
             restore(pre)
+            collectives.activate(groups)  # ``_rows`` reads the data group
             dctx = _rows(pre_ctx, n)
-            collectives.activate(groups)
+            if groups.spatial:
+                dctx = _plane_rows(dctx, groups.model_size, groups.model_rank)
+            replay = iter(drawn[k0:])
+            dctx["masks"] = lambda: [collectives.local_rows(m)
+                                     for m in next(replay)]
+            n0, t = [f.launches for f in counted], clock()
             phase(model, state, dctx)
+            split_s = clock() - t
+            launches = [f.launches - k for f, k in zip(counted, n0)]
             got = collectives.mean_over_data(
                 {k: torch.as_tensor(dctx["metrics"][k]).detach().float()
                  for k in new})
@@ -472,7 +532,9 @@ def phase_by_phase(cfg_kw: Dict[str, Any], batch: Dict[str, torch.Tensor]
                 {p: v.detach() for p, v in net.named_parameters()}, want[k],
                 state.optimizers[k].param_groups[0]["lr"])
                 for k, net in state.nets.items() if k in state.optimizers}
-            out.append({"phase": name, "losses": losses, "nets": nets})
+            out.append({"phase": name, "losses": losses, "nets": nets,
+                        "one_s": one_s, "split_s": split_s,
+                        "launches": launches})
             restore(post)
         return out
     finally:

@@ -24,7 +24,11 @@ reductions. One process is one rank here, so both are written out:
   hold them; W stays whole on every rank and is padded as before;
 - a transposed conv owns its output rows by the same rule and fetches the
   input rows that reach them; a nearest ×2 upsample reads input row
-  ⌊o/2⌋ for output row o;
+  ⌊o/2⌋ for output row o, a bilinear ×2 with corners aligned rows
+  ⌊o·(h−1)/(2h−1)⌋ and the next, a nearest resize row ⌊o·h/h_out⌋ (the
+  positions and weights of the global h); a global mean over the plane
+  (``nn.AdaptiveAvgPool2d(1)``) sums each rank's rows and all-reduces the
+  sums forward and backward, and every rank holds the pooled map;
 - ``InstanceNorm`` runs the kernels' split entries with the ``model``
   group and the whole plane's count (``ops.kernels.instance_norm``);
   ``BatchNorm`` in train mode takes its statistics over ``data`` ×
@@ -42,7 +46,8 @@ reductions. One process is one rank here, so both are written out:
 ``spatial(net, group)`` makes a net run so, in place: the CycleGAN and
 pix2pix nets (``ResnetGenerator`` in both up modes, ``UnetGenerator``,
 ``NLayerDiscriminator``, ``PixelDiscriminator``), T2Net's task net
-(``UNetGenerator``) and SegCycle's ``UNetEncoder``/``UNetDecoder``. A net
+(``UNetGenerator``), SegCycle's ``UNetEncoder``/``UNetDecoder``, and the
+nets of S2D, S2D_base and S2D_alt (``parallel/spatial_s2d.py``). A net
 keeps its modules, names and parameters (``state_dict()`` and the
 importers do not change); its forward walks its layers with each plane's
 global height beside the local rows: ``_run`` walks a ``Sequential``,
@@ -51,7 +56,8 @@ whose forwards are Python code over several features (the T2Net trunk
 and heads, the encoder and decoder) have row forwards of their own here
 that mirror theirs. Each rank's parameter gradients are then its rows'
 part: the train step sums them over ``model``
-(``collectives.sync_replicas``).
+(``collectives.sync_replicas``). Where the active groups are not spatial
+(rank 0's in-loop KITTI validation), a net runs whole planes.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from __future__ import annotations
 import functools
 from typing import Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -380,6 +387,113 @@ def upsample2_rows(x: torch.Tensor, h: int, group
     return _local(op, xb), 2 * h
 
 
+def _align_corners(n_in: int, n_out: int):
+    """torch's bilinear source positions with corners aligned, in its
+    float32 arithmetic: for each output index o, ``i0 = ⌊o·s⌋`` with ``s =
+    (n_in − 1)/(n_out − 1)``, ``i1 = min(i0 + 1, n_in − 1)`` and the
+    weight ``λ = o·s − i0`` of ``i1``."""
+    s = (np.float32(n_in - 1) / np.float32(n_out - 1) if n_out > 1
+         else np.float32(0))
+    src = s * np.arange(n_out, dtype=np.float32)
+    i0 = src.astype(np.int64)
+    return i0, np.minimum(i0 + 1, n_in - 1), src - i0.astype(np.float32)
+
+
+def _lerp(t: torch.Tensor, dim: int, i0, i1, lam) -> torch.Tensor:
+    """``t`` at the positions (i0, i1, λ) along ``dim``: t[i0]·(1 − λ) +
+    t[i1]·λ."""
+    shape = [1] * t.dim()
+    shape[dim] = len(lam)
+    w = torch.from_numpy(lam).to(t.device, t.dtype).view(shape)
+    a = t.index_select(dim, torch.from_numpy(i0).to(t.device))
+    b = t.index_select(dim, torch.from_numpy(i1).to(t.device))
+    return a * (1 - w) + b * w
+
+
+def bilinear2_rows(x: torch.Tensor, h: int, group
+                   ) -> Tuple[torch.Tensor, int]:
+    """Bilinear ×2 with corners aligned (``resize_bilinear(…,
+    align_corners=True)``) over a plane of height ``h`` split over
+    ``group``: output row o of 2h reads input rows ⌊o·(h−1)/(2h−1)⌋ and the
+    one after it, the positions and weights taken from the global ``h``;
+    the two can lie on two ranks, and a rank may hold output rows and
+    none of their input. W is whole and resized as in one process."""
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+    i0, i1, lam = _align_corners(h, 2 * h)
+
+    def rows(q):
+        o0, o1 = row_range(2 * h, m, q)
+        return (int(i0[o0]), int(i1[o1 - 1]) + 1) if o1 > o0 else (0, 0)
+
+    need = [rows(q) for q in range(m)]
+    xb = halo(x, h, need, group)
+    o0, o1 = row_range(2 * h, m, r)
+    lo = need[r][0]
+
+    def op(t):
+        y = _lerp(t, 2, i0[o0:o1] - lo, i1[o0:o1] - lo, lam[o0:o1])
+        return _lerp(y, 3, *_align_corners(t.shape[3], 2 * t.shape[3]))
+
+    return _local(op, xb), 2 * h
+
+
+def nearest_rows(x: torch.Tensor, h: int, size: Tuple[int, int], group
+                 ) -> Tuple[torch.Tensor, int]:
+    """``resize_nearest(x, size)`` over a plane of height ``h`` split over
+    ``group``: output row o of ``size[0]`` reads input row ⌊o·h/size[0]⌋
+    (the index torch's op takes), fetched where another rank owns it (the
+    neighbouring rank's, where the rows split unevenly)."""
+    from ..ops.layers import resize_nearest
+
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+    h_out, w_out = size
+
+    def index(n_in, n_out):  # the source index of each output index
+        ramp = torch.arange(n_in, dtype=torch.float32).view(1, 1, n_in, 1)
+        return resize_nearest(ramp, (n_out, 1)).view(-1).long().numpy()
+
+    src = index(h, h_out)
+
+    def rows(q):
+        o0, o1 = row_range(h_out, m, q)
+        return (int(src[o0]), int(src[o1 - 1]) + 1) if o1 > o0 else (0, 0)
+
+    need = [rows(q) for q in range(m)]
+    xb = halo(x, h, need, group)
+    o0, o1 = row_range(h_out, m, r)
+
+    def op(t):
+        cols = torch.from_numpy(index(t.shape[3], w_out)).to(t.device)
+        ii = torch.from_numpy(src[o0:o1] - need[r][0]).to(t.device)
+        return t.index_select(2, ii).index_select(3, cols)
+
+    return _local(op, xb), h_out
+
+
+def global_mean_rows(x: torch.Tensor, h: int, group) -> torch.Tensor:
+    """``nn.AdaptiveAvgPool2d(1)`` over a plane of height ``h`` split over
+    ``group``: each rank's sum over its rows and W, summed over the group
+    (``collectives.all_reduce``: the sum forward and backward, for every
+    rank's rows read the one (N, C, 1, 1) map and each sends back its own
+    gradient to it), over the whole plane's count. Every rank holds the
+    map whole."""
+    from .collectives import all_reduce
+
+    s = all_reduce(x.sum((2, 3), keepdim=True), group)
+    return s / (h * x.shape[3])
+
+
+def plane_heights(tensors: Sequence[torch.Tensor], group) -> List[int]:
+    """The heights of the planes whose rows ``tensors`` hold (NCHW, or
+    NHW), their rows summed over ``group`` in one message: a net's input
+    that is another net's output need not split evenly."""
+    from .collectives import all_reduce_
+
+    rows = torch.tensor([t.shape[-2] for t in tensors],
+                        device=tensors[0].device)
+    return all_reduce_(rows, group).tolist()
+
+
 def plane_draw_rows(x: torch.Tensor, h: int, group, draw: Callable
                     ) -> torch.Tensor:
     """This rank's block of ``draw(shape)``, drawn at the global batch's
@@ -432,6 +546,9 @@ def _layer(mod: nn.Module, x: torch.Tensor, h: int, group
     from ..ops.kernels.instance_norm import instance_norm
     from ..ops.layers import BatchNorm, InstanceNorm, PReLU
 
+    for cls, rows in _block_forwards().items():  # before nn.Sequential
+        if isinstance(mod, cls):
+            return rows(mod, x, h, group)
     if isinstance(mod, nn.Conv2d):
         return conv2d_rows(x, mod, h, group, mod.padding[0])
     if isinstance(mod, nn.ConvTranspose2d):
@@ -573,12 +690,7 @@ def _encoder_forward(net, group, x):
 
 
 def _decoder_forward(net, group, feats):
-    from .collectives import all_reduce_
-
-    # the features' heights: their rows summed over the group, one message
-    rows = torch.tensor([f.shape[2] for f in feats], device=feats[0].device)
-    heights = all_reduce_(rows, group).tolist()
-    feats = list(zip(feats, heights))
+    feats = list(zip(feats, plane_heights(feats, group)))
     center_out = _layer(net.deconv_center, *feats[4], group)
     return [feats[3][0], *_head_rows(net.head, [*feats[:4], center_out],
                                      group)]
@@ -591,13 +703,25 @@ def _row_forwards():
                                    ResnetGenerator, UnetGenerator)
     from ..models.seg_network import UNetGenerator
 
+    from .spatial_s2d import net_forwards
+
     return {ResnetGenerator: _sequential_net("model"),
             NLayerDiscriminator: _sequential_net("model"),
             PixelDiscriminator: _sequential_net("net"),
             UnetGenerator: _unet_forward,
             UNetGenerator: _task_net_forward,
             UNetEncoder: _encoder_forward,
-            UNetDecoder: _decoder_forward}
+            UNetDecoder: _decoder_forward,
+            **net_forwards()}
+
+
+@functools.lru_cache(maxsize=None)
+def _block_forwards():
+    """The row forwards of the blocks ``_layer`` meets inside the S2D
+    nets (``parallel/spatial_s2d.py``), by module class."""
+    from .spatial_s2d import block_forwards
+
+    return block_forwards()
 
 
 class _SpatialNet:
@@ -606,8 +730,11 @@ class _SpatialNet:
     sp_group = None
 
     def forward(self, *args, **kw):
+        from .collectives import active
+
         g = self.sp_group
-        if g is None or dist.get_world_size(g) == 1:
+        # one rank alone (the in-loop KITTI validation) runs whole planes
+        if g is None or not active().spatial or dist.get_world_size(g) == 1:
             return super().forward(*args, **kw)
         return _row_forwards()[self.sp_base](self, g, *args, **kw)
 

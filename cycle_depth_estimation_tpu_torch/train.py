@@ -82,8 +82,9 @@ global (``parallel/``). ``--mesh_shape D M`` puts the ranks on ``data`` ×
 Adam's moments (and the parameters) over ``data``, ``--parallel tp`` the
 CycleGAN generators' trunk channels over ``model``, ``--parallel sp`` the
 images' height over ``model`` (``parallel/spatial.py``: cycle_gan with any
-generator, discriminator and norm, pix2pix, seg_cycle and seg; the loader's
-image height must divide by the ``model`` size).
+generator, discriminator and norm, pix2pix, seg_cycle, seg, S2D, S2D_base
+and S2D_alt; the loader's image height must divide by the ``model``
+size).
 Pipelines are a library call (``parallel/pipeline.py``
 ``gpipe_apply``), not a CLI mode. The backend is NCCL when
 every rank has its own card, gloo otherwise (printed first). Rank 0 alone
@@ -213,7 +214,8 @@ def place_state(cfg, state, groups, distributed: bool = True):
 
 
 # the models whose nets ``parallel/spatial.py`` splits by rows
-SP_MODELS = ("cycle_gan", "pix2pix", "seg_cycle", "seg")
+SP_MODELS = ("cycle_gan", "pix2pix", "seg_cycle", "seg", "S2D", "S2D_base",
+             "S2D_alt")
 
 
 def check_layout(cfg, groups, distributed: bool) -> None:
@@ -227,8 +229,9 @@ def check_layout(cfg, groups, distributed: bool) -> None:
     if cfg.parallel == "sp" and cfg.model not in SP_MODELS:
         raise SystemExit(
             f"--parallel sp is wired for {', '.join(SP_MODELS)} with any of"
-            f" their nets and norms (got model={cfg.model!r}); sp for the"
-            " S2D family, rf_lw(7) and semantic_trans(_full) is ROADMAP A1c")
+            f" their nets and norms (got model={cfg.model!r}); sp for"
+            " S2D_df, S2D_nd, rf_lw(7) and semantic_trans(_full) is ROADMAP"
+            " A1c")
     if cfg.parallel in ("sp", "tp") and groups.model is None:
         raise SystemExit(
             f"--parallel {cfg.parallel} needs a 'model' mesh axis: pass"

@@ -46,6 +46,17 @@ DN = ("NHWC", "HWIO", "NHWC")
 INT8_MODES = ("int8_dilated", "int8_phases", "resize_conv_int8")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file's tests run: six test
+    processes share the machine's cores in the Tier-1 run, and torch's
+    threads would wait on one another there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cos(a, b):
     a = np.asarray(a, np.float32).ravel()
     b = np.asarray(b, np.float32).ravel()

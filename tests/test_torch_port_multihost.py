@@ -1,15 +1,16 @@
 """The port's multi-process training on the CPU (its counterpart of
 ``tests/test_multihost.py``): the train CLI in two local processes joined
 by ``--coordinator_address/--num_processes/--process_index`` against the
-same CLI in one process (also pix2pix under ``--parallel sp``), and the
-pix2pix (BatchNorm) and S2D steps on two spawned gloo ranks against one
-process, at the dryrun's reduced S2D config. Every process has a
-timeout."""
+same CLI in one process (also pix2pix and S2D under ``--parallel sp``),
+and the pix2pix (BatchNorm) and S2D steps on two spawned gloo ranks
+against one process, at the dryrun's reduced S2D config, the one process
+running beside the ranks. Every process has a timeout."""
 
 import os
 import shutil
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from cycle_depth_estimation_tpu_torch.config import Config, apply_model_defaults
 from cycle_depth_estimation_tpu_torch.models import create_model
 from cycle_depth_estimation_tpu_torch.models.networks import biases_before_norm
 from cycle_depth_estimation_tpu_torch.parallel import dryrun
+from tests.test_torch_port_try_data import write_try_files
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLI = ["--device", "cpu", "--ngf", "8", "--ndf", "8", "--netG",
@@ -163,6 +165,37 @@ def test_sp_cli_trains_pix2pix_as_one_process(cli_runs):
         dryrun.pooled_params_close(b, a, 2e-4, f"pix2pix sp CLI {net}")
 
 
+def test_sp_cli_trains_s2d_as_one_process(cli_runs):
+    """S2D (the smallest widths, 192×576 ``try`` images, one step, Adam's
+    eps 1e-3) under --mesh_shape 1 2 --parallel sp in two processes against
+    the CLI in one: each process holds 96 of the 192 rows of every image,
+    label map, depth map and band; the six saved nets are the one
+    process's by the pooled checks, and the visuals and the eval over the
+    test split are whole."""
+    tmp = cli_runs[0]
+    lists = write_try_files(str(tmp / "try"), n=1)
+    s2d = ["--model", "S2D", "--dense_block_config", "2", "2", "2", "2",
+           "--g1_blocks", "1", "--s2d_mid_nc", "64", "--dense_growth_rate",
+           "8", "--adam_eps", "1e-3", "--fine_size", "192", "--batch_size",
+           "1", "--display_freq", "1", "--print_freq", "1", "--name", "s2d"]
+    for kind, path in lists.items():
+        s2d += [f"--{kind}_file_train", path]
+    for kind in ("img_source", "img_target", "lab_source", "depth_source"):
+        s2d += [f"--{kind}_file_test", lists[kind]]
+    one, _ = _digest_runs(tmp, "s2d_one", s2d, 1)
+    sp, outs = _digest_runs(tmp, "s2d_sp", [*s2d, "--mesh_shape", "1", "2",
+                                            "--parallel", "sp"], 2)
+    assert sp[0] == sp[1], sp
+    assert float(sp[0]) == pytest.approx(float(one[0]), rel=1e-5)
+    for net in ("G_1", "G_2", "R_D", "FD1", "FD2", "FD3"):
+        a, b = (torch.load(tmp / run / "s2d" / f"latest_net_{net}.pth")
+                for run in ("s2d_one", "s2d_sp"))
+        dryrun.pooled_params_close(b, a, 2e-4, f"S2D sp CLI {net}")
+    assert "[eval epoch 1]" in outs[0] and "dep_ref" in outs[0]
+    pngs = sorted((tmp / "s2d_sp" / "s2d" / "web" / "images").glob("*.png"))
+    assert pngs and all(Image.open(p).size == (576, 192) for p in pngs)
+
+
 def test_zero_checkpoints_load_without_zero_and_the_reverse(cli_runs):
     tmp = cli_runs[0]
     _digest_runs(tmp, "zero", ["--zero", "fsdp"], 2)
@@ -196,7 +229,7 @@ def test_dp_refuses_what_the_port_lacks(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "S2D"],
+    ["--model", "S2D_df"],
     ["--model", "rf_lw"],
     ["--model", "semantic_trans"],
 ])
@@ -242,8 +275,19 @@ def _cases():
 
 @pytest.fixture(scope="module")
 def steps():
-    two = dryrun.spawn(dryrun.run_cases, 2, (_cases(),), timeout=240)
-    return two, dryrun.run_cases(_cases())
+    world = {}
+    spawned = threading.Thread(target=lambda: world.update(
+        two=dryrun.spawn(dryrun.run_cases, 2, (_cases(),), timeout=240)))
+    spawned.start()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as each rank has, beside them
+    try:
+        one = dryrun.run_cases(_cases())
+    finally:
+        torch.set_num_threads(threads)
+        spawned.join()
+    assert "two" in world, "the ranks failed (their log is above)"
+    return world["two"], one
 
 
 @pytest.mark.parametrize("case", ["pix2pix", "s2d"])

@@ -23,6 +23,19 @@ from cycle_depth_estimation_tpu_torch.data.datasets import UnalignedDataset
 from cycle_depth_estimation_tpu_torch.train import main as train_main
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while a test of this file runs: six test
+    processes share the machine's cores in the Tier-1 run, and a train CLI
+    at these sizes on eight threads a process spends its time waiting for
+    the others (the CycleGAN CLI test: 3 s alone, 52 s beside seven busy
+    processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _write_pngs(folder, n, size, seed):
     os.makedirs(folder, exist_ok=True)
     rng = np.random.RandomState(seed)
@@ -311,10 +324,10 @@ def _train_and_resume(extra, tmp_path, logged=("acc_real", "dep_syn"),
 
 @pytest.mark.parametrize("model", ["S2D_base", "S2D_alt"])
 def test_s2d_base_generation_train_cli_trains_and_resumes(model, tmp_path):
-    """Two steps on tiny ``try`` files at 64×192, a save, then a resume
+    """Two steps on tiny ``try`` files at 32×96, a save, then a resume
     with ``--continue_train`` for one more step; the nets load back."""
-    _train_and_resume(["--model", model, "--g1_blocks", "1", "--ndf", "8"],
-                      tmp_path)
+    _train_and_resume(["--model", model, "--g1_blocks", "1", "--ndf", "8",
+                       "--fine_size", "32"], tmp_path)
 
 
 TWO_TRUNK = {

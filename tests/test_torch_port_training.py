@@ -46,6 +46,17 @@ SMALL = dict(model="cycle_gan", fine_size=32, ngf=4, ndf=4,
              d_steps_per_g=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file's tests run: six test
+    processes share the machine's cores in the Tier-1 run, and torch's
+    threads would wait on one another there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
 
